@@ -1,0 +1,361 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's rx_fm WBFM chain on one CUDA card and check it.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
+CUDA card and the CUDA toolkit (nvcc); it builds the kernels from
+``rx_tools_tpu_torch/kernels/csrc`` and exits non-zero, printing no
+result, when anything fails — including when there is no CUDA device or
+no checkout around it.
+
+Phases, in order:
+
+1. the card (``nvidia-smi``), the CUDA version, the kernel build;
+2. every kernel against its plain PyTorch version on the card, at the CLI
+   geometry (D = 6, 8208-sample blocks, 16 a chunk) and at BASELINE
+   config #1 (D = 14, 258048-sample blocks, 12 a chunk): the capture head
+   in its three layouts (K1, K3, K4) bit for bit, the fused front (K2) at
+   the reference's K2 tolerances with its ulp distance reported; each
+   timed with CUDA events at config #1 (median of rounds after warmup,
+   launches queued behind a device-side sleep so host overhead is not
+   timed, inputs rotated through more than the 50 MB L2);
+3. the main path: config #1 WBFM (2.4 Msps, the port's synth=fm with a
+   1 kHz tone, 8 chunks, ~10 s of signal) through ``ChunkedFmRunner``
+   (scan engine) — K1 must launch, the tone must come back, and the PCM
+   must match the same input through the port on the CPU (same count,
+   at most 1 LSB apart); the scan engine against per-block stepping on
+   the card is reported (bitwise or not, at most 1 LSB required);
+4. the fused path: the same input through the flat engine
+   (``fm_chunk_step``) with ``fused=True`` — K2 must launch, audio held to
+   the scan path at the flat engine's tolerance (rtol 1e-4, atol 0.02);
+5. the CLI: ``rx_fm -M wbfm`` on a synth source, 64 blocks — K1 must
+   launch, the tone must come back;
+6. one JSON line listing every kernel entry point, then the result line.
+"""
+
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+AUDIO_RATE = 32_000
+CAPTURE_RATE = 2_400_000              # BASELINE config #1
+STATION = 100.3e6
+HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
+FP32_OPS_PER_S = 67e12                # H100 SXM, float32 outside tensor cores
+
+
+def fail(msg):
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def tone_hz(pcm):
+    a = pcm[2000:].astype("float64")
+    a -= a.mean()
+    import numpy as np
+    sp = np.abs(np.fft.rfft(a * np.hanning(a.size))) ** 2
+    return float(np.fft.rfftfreq(a.size, 1 / AUDIO_RATE)[np.argmax(sp)])
+
+
+def time_ms(fn, args_list, rounds=5, iters=20):
+    """Median per-call device time of ``fn(*args)`` over ``rounds`` rounds
+    of ``iters`` calls, inputs rotated through ``args_list``.  Each round
+    queues behind a device-side sleep, so the card runs the calls back to
+    back and the host's enqueue time is not measured."""
+    import torch
+    for a in args_list[:2]:
+        fn(*a)                                   # warmup
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)
+        start.record()
+        for i in range(iters):
+            fn(*args_list[i % len(args_list)])
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def bound(bytes_moved, ops):
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / FP32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                            "operations")
+
+
+def ulp_distance(a, b):
+    import numpy as np
+    ai = a.astype(np.float32).view(np.int32).astype(np.int64)
+    bi = b.astype(np.float32).view(np.int32).astype(np.int64)
+    return int(np.abs(ai - bi).max()) if ai.size else 0
+
+
+def main():
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    if not (ROOT / "rx_tools_tpu_torch" / "kernels" / "csrc").is_dir():
+        fail(f"no rx_tools_tpu_torch checkout beside {__file__}")
+    sys.path.insert(0, str(ROOT))
+
+    from rx_tools_tpu_torch import ops
+    from rx_tools_tpu_torch.apps import rx_fm
+    from rx_tools_tpu_torch.iq.sources import make_source
+    from rx_tools_tpu_torch.kernels import build
+    from rx_tools_tpu_torch.models import fmchain
+    from rx_tools_tpu_torch.ops import frontend_mxu, fused_frontend
+    from rx_tools_tpu_torch.ops import pallas_frontend
+    from rx_tools_tpu_torch.stream.chunked import ChunkedFmRunner
+    from rx_tools_tpu_torch.stream.scan import scan_fm_blocks
+
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    # ---- phase 1: card, toolkit, build ---------------------------------
+    card = card_line()
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    build.build(force=True)
+    build_s = time.perf_counter() - t0
+    print(f"kernels built in {build_s:.1f} s (nvcc per source, in parallel)")
+    for name, log in build.build_log.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    k1 = frontend_mxu.capture_frontend_mm_pallas
+    k4 = frontend_mxu.capture_frontend_mm_pallas2
+    k3 = pallas_frontend.capture_frontend_pallas
+    k2 = fused_frontend.fused_capture_fm
+    counters = {"capture_frontend_mm_pallas": k1,
+                "capture_frontend_pallas": k3,
+                "capture_frontend_mm_pallas2": k4,
+                "fused_capture_fm": k2}
+
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    # ---- phase 2: kernels against their plain versions ------------------
+    geoms = {"cli": (6, 8208, 16), "config1": (14, 258048, 12)}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    report = {}
+    for geom, (d, n, m) in geoms.items():
+        x = torch.randint(-32768, 32767, (m * 2 * n,), generator=gen,
+                          device=dev, dtype=torch.int32).to(torch.int16)
+        kpb = n // d
+        plain_i, plain_q = frontend_mxu.capture_head_plain(x, d)
+        plain_il = frontend_mxu.capture_head_plain(x, d, interleaved=True)
+        for name, got in (("K1", k1(x, d)), ("K4", k4(x, d))):
+            if not (torch.equal(got[0], plain_i)
+                    and torch.equal(got[1], plain_q)):
+                fail(f"{name} differs from its plain version at {geom}")
+        if not torch.equal(k3(x, d), plain_il):
+            fail(f"K3 differs from its plain version at {geom}")
+        prev = torch.tensor([3.0, -2.0], device=dev)
+        pg, dg, lg = fused_frontend.fused_capture_fm_demod(prev, x, d, kpb)
+        pp, dp, lp = fused_frontend.fused_capture_fm_plain(prev, x, d, kpb)
+        torch.cuda.synchronize()
+        d_err = float((dg - dp).abs().max())
+        d_ulps = ulp_distance(dg.cpu().numpy(), dp.cpu().numpy())
+        lv_ok = torch.allclose(lg, lp, rtol=1e-5, atol=1e-3)
+        if d_err > 5e-2 or not lv_ok or float((pg - pp).abs().max()) > 1e-3:
+            fail(f"K2 outside its tolerance at {geom}: d {d_err}, "
+                 f"levels ok {lv_ok}")
+        print(f"{geom}: K1/K3/K4 bitwise; K2 d max |err| {d_err} "
+              f"({d_ulps} ulp), levels max rel err "
+              f"{float(((lg - lp).abs() / lp.abs()).max()):.3g}")
+        report[geom] = dict(x=x, d=d, kpb=kpb, d_err=d_err, d_ulps=d_ulps)
+
+    # timing at the main path's shapes (config #1 chunk)
+    cfg1 = report["config1"]
+    d, kpb = cfg1["d"], cfg1["kpb"]
+    x0 = cfg1["x"]
+    n_in = x0.numel() // 2                       # complex samples
+    k_out = n_in // d
+    bufs = [(x0 if i == 0 else torch.randint(
+        -32768, 32767, x0.shape, generator=gen, device=dev,
+        dtype=torch.int32).to(torch.int16), d) for i in range(5)]
+    prev = torch.zeros(2, device=dev)
+    fbufs = [(prev, b, d, kpb) for b, _ in bufs]
+    m_blocks = k_out // kpb
+    kern = {
+        "capture_frontend_mm_pallas": dict(
+            fn=k1, plain=lambda xx, dd: frontend_mxu.capture_head_plain(
+                xx, dd), args=bufs, out_bytes=8 * k_out, err=0.0,
+            source="rx_tools_tpu_torch/kernels/csrc/capture_head.cu",
+            replaces="rx_tools_tpu/ops/frontend_mxu.py:262"),
+        "capture_frontend_pallas": dict(
+            fn=k3, plain=lambda xx, dd: frontend_mxu.capture_head_plain(
+                xx, dd, interleaved=True), args=bufs, out_bytes=8 * k_out,
+            err=0.0,
+            source="rx_tools_tpu_torch/kernels/csrc/capture_head.cu",
+            replaces="rx_tools_tpu/ops/pallas_frontend.py:105"),
+        "capture_frontend_mm_pallas2": dict(
+            fn=k4, plain=lambda xx, dd: frontend_mxu.capture_head_plain(
+                xx, dd), args=bufs, out_bytes=8 * k_out, err=0.0,
+            source="rx_tools_tpu_torch/kernels/csrc/capture_head.cu",
+            replaces="rx_tools_tpu/ops/frontend_mxu.py:317"),
+        "fused_capture_fm": dict(
+            fn=fused_frontend.fused_capture_fm_demod,
+            plain=fused_frontend.fused_capture_fm_plain, args=fbufs,
+            out_bytes=4 * k_out + 4 * m_blocks + 8, err=cfg1["d_err"],
+            ops=20 * k_out,
+            source="rx_tools_tpu_torch/kernels/csrc/fused_capture_fm.cu",
+            replaces="rx_tools_tpu/ops/fused_frontend.py:149"),
+    }
+    for name, k in kern.items():
+        k["ms"] = time_ms(k["fn"], k["args"])
+        k["plain_ms"] = time_ms(k["plain"], k["args"], iters=5)
+        k["bound_ms"], k["bound_by"] = bound(
+            4 * n_in + k["out_bytes"], 2 * n_in + k.get("ops", k_out))
+        print(json.dumps({"kernel": name, "shape": f"{m_blocks} x {kpb * d}"
+                          f" samples, D={d}", "ms": k["ms"],
+                          "bound_ms": k["bound_ms"],
+                          "plain_ms": k["plain_ms"]}))
+    del bufs, fbufs, report
+
+    # ---- phase 3: the main path at config #1 ----------------------------
+    rate_in = CAPTURE_RATE // 14
+    cfg = fmchain.FmConfig(
+        mode="fm", rate_in=rate_in, rate_out=rate_in, rate_out2=AUDIO_RATE,
+        downsample=14, custom_atan=ops.DISC_FAST,
+        deemph_a=ops.deemph_alpha(rate_in, 75), squelch_level=0.0)
+    block, chunk, n_chunks = 258048, 12, 8
+    query = ("synth=fm,audio=1k,dev=75k,amp=0.8,noise=0.001,seed=7,"
+             f"carrier={STATION:.0f}")
+
+    def synth():
+        src = make_source(query)
+        src.set_sample_rate(CAPTURE_RATE)
+        src.set_frequency(STATION + CAPTURE_RATE / 4)
+        return src
+
+    def run(device, engine=None, fused=None):
+        got = []
+        runner = ChunkedFmRunner(cfg, synth(),
+                                 lambda a, lvl: got.append(a.copy()),
+                                 chunk=chunk, block_size=block,
+                                 engine=engine, fused=fused, device=device)
+        runner.warmup()
+        reset_counts()
+        t = time.perf_counter()
+        stats = runner.run(max_blocks=chunk * n_chunks)
+        if device == dev:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = {k: f.launches for k, f in counters.items()}
+        return np.concatenate(got), stats, wall, counts
+
+    audio_gpu, stats, wall, main_counts = run(dev)
+    pcm_gpu = fmchain.audio_to_int16(audio_gpu)
+    hz = tone_hz(pcm_gpu)
+    print(f"main path: {stats.blocks} blocks, {stats.samples_in} samples in, "
+          f"{pcm_gpu.size} PCM out, {wall:.3f} s wall on the card "
+          f"({stats.realtime_multiple(CAPTURE_RATE):.1f}x realtime, host "
+          f"synth included), tone {hz:.1f} Hz, launches {main_counts}")
+    if main_counts["capture_frontend_mm_pallas"] <= 0:
+        fail("the main path did not launch the capture-head kernel")
+    if abs(hz - 1000.0) > 10:
+        fail(f"tone not recovered on the card ({hz} Hz)")
+    audio_cpu, _, cpu_wall, _ = run(torch.device("cpu"))
+    pcm_cpu = fmchain.audio_to_int16(audio_cpu)
+    if pcm_cpu.size != pcm_gpu.size:
+        fail(f"card {pcm_gpu.size} vs CPU {pcm_cpu.size} PCM samples")
+    lsb = int(np.abs(pcm_gpu.astype(int) - pcm_cpu.astype(int)).max())
+    print(f"card vs CPU ({cpu_wall:.1f} s): same count, max |diff| {lsb} LSB")
+    if lsb > 1:
+        fail(f"card and CPU PCM differ by {lsb} LSB")
+
+    # scan engine vs per-block stepping on the card (first chunk)
+    src = synth()
+    blocks = np.stack([src.read_stream(block)[1] for _ in range(chunk)])
+    st0 = fmchain.init_state(cfg, dev)
+    _, a_s, nv_s, _ = scan_fm_blocks(cfg, st0, blocks)
+    st, outs = st0, []
+    for b in blocks:
+        st, a, nv, _ = fmchain.fm_chain_step(cfg, st, b)
+        outs.append(a[: int(nv)].cpu().numpy())
+    scan_audio = np.concatenate([a_s[i, : int(nv_s[i])].cpu().numpy()
+                                 for i in range(chunk)])
+    step_audio = np.concatenate(outs)
+    bitwise = bool(np.array_equal(scan_audio, step_audio))
+    step_lsb = int(np.abs(fmchain.audio_to_int16(scan_audio).astype(int)
+                          - fmchain.audio_to_int16(step_audio)).max())
+    print(f"scan engine vs per-block stepping on the card: bitwise "
+          f"{bitwise}, max |diff| {step_lsb} LSB")
+    if step_lsb > 1:
+        fail("scan engine and per-block stepping differ by more than 1 LSB")
+
+    # ---- phase 4: the fused path (flat engine, K2) -----------------------
+    audio_fused, fstats, fwall, fused_counts = run(dev, engine="flat",
+                                                   fused=True)
+    print(f"fused path: {fwall:.3f} s wall, launches {fused_counts}")
+    if fused_counts["fused_capture_fm"] <= 0:
+        fail("the fused path did not launch the fused kernel")
+    if audio_fused.size != audio_gpu.size:
+        fail(f"fused path {audio_fused.size} vs {audio_gpu.size} samples")
+    if not np.allclose(audio_fused, audio_gpu, rtol=1e-4, atol=0.02):
+        fail("fused path outside the flat engine's tolerance: max |diff| "
+             f"{np.abs(audio_fused - audio_gpu).max()}")
+    print(f"fused path vs scan path: max |diff| "
+          f"{float(np.abs(audio_fused - audio_gpu).max()):.3g}")
+
+    # ---- phase 5: the CLI ------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "wbfm.raw"
+        reset_counts()
+        rc = rx_fm.main(["-f", "100.3M", "-M", "wbfm", "-d",
+                         "synth=fm,audio=1k,dev=50k,amp=0.8,noise=0.001,"
+                         "carrier=100.3M", "--blocks", "64", str(out)])
+        cli_counts = {k: f.launches for k, f in counters.items()}
+        pcm = np.fromfile(out, np.int16)
+    hz = tone_hz(pcm)
+    print(f"CLI: rc {rc}, {pcm.size} PCM samples, tone {hz:.1f} Hz, "
+          f"launches {cli_counts}")
+    if rc != 0 or cli_counts["capture_frontend_mm_pallas"] <= 0:
+        fail("the CLI did not run through the capture-head kernel")
+    if abs(hz - 1000.0) > 10:
+        fail(f"tone not recovered by the CLI ({hz} Hz)")
+
+    # ---- phase 6: the record ---------------------------------------------
+    path_counts = dict(main_counts)
+    path_counts["fused_capture_fm"] = fused_counts["fused_capture_fm"]
+    lines = []
+    for name, k in kern.items():
+        lines.append({"name": name, "route": "cuda", "source": k["source"],
+                      "replaces": k["replaces"],
+                      "launches": path_counts[name],
+                      "max_abs_err": k["err"], "ms": k["ms"],
+                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                      "bound_by": k["bound_by"], "library_ms": None})
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(card)
+    print(json.dumps({"kernels": lines}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,395 @@
+"""``rx_fm`` — FM/AM/SSB demodulator, I/Q in -> 16-bit PCM out, on CUDA.
+
+Counterpart of :mod:`rx_tools_tpu.apps.rx_fm`, with the same flags
+(``src/rtl_fm.c:195-260``, getopt loop ``:1224-1365``), the ``wbfm`` macro
+preset (``rtl_fm.c:1331-1341``), signed 16-bit PCM on stdout (a WAV header
+with ``-E wav``) and every log line on stderr.  The chain runs through the
+chunked runner on the CUDA device (``RX_PLATFORM=cpu`` runs the plain
+PyTorch versions on the CPU).
+
+Not yet ported: each of these flags logs one line naming it and exits 1 —
+``--int-audio``, ``-E shard``, ``--checkpoint``/``--resume``, ``-b 1``,
+``-F``, ``-E hq``, ``-E rdc``, and scanning over more than one ``-f``.
+
+Run: ``python -m rx_tools_tpu_torch.apps.rx_fm -f 100.3M -M wbfm
+-d synth=fm,audio=1k out.raw``.
+"""
+
+from __future__ import annotations
+
+import getopt
+import sys
+
+import numpy as np
+
+from rx_tools_tpu_torch import ops
+from rx_tools_tpu_torch.apps import common
+from rx_tools_tpu_torch.device import resolve_device
+from rx_tools_tpu_torch.models import fmchain
+from rx_tools_tpu_torch.stream.chunked import ChunkedFmRunner
+from rx_tools_tpu_torch.utils.logging import log
+from rx_tools_tpu_torch.utils.units import atofs
+from rx_tools_tpu_torch.utils.wav import write_wav_header
+
+FREQUENCIES_LIMIT = 1000
+
+USAGE = """rx_fm (rx_tools_tpu_torch), a simple narrow band FM demodulator
+
+Use:\trx_fm -f freq [-options] [filename]
+\t-f frequency_to_tune_to [Hz]
+\t\tuse multiple -f for scanning (requires squelch)
+\t\tranges supported, -f 118M:137M:25k
+\t[-v increase verbosity (default: 0)]
+\t[-M modulation (default: fm)]
+\t\tfm or nbfm or nfm, wbfm or wfm, raw or iq, am, usb, lsb
+\t\twbfm == -M fm -s 170k -o 4 -A fast -r 32k -l 0 -E deemp
+\t\traw mode outputs 2x16 bit IQ pairs
+\t[-s sample_rate (default: 24k)]
+\t[-d device key/value query (ex: file=cap.bin, synth=fm)]
+\t[-g tuner gain(s) (ex: 20, 40, LNA=40,VGA=20,AMP=0)]
+\t[-w tuner_bandwidth (default: automatic. enables offset tuning)]
+\t[-C channel number (ex: 0)]
+\t[-a antenna (ex: 'Tuner 1 50 ohm')]
+\t[-l squelch_level (default: 0/off)]
+\t[-L N  prints levels every N calculations]
+\t[-c de-emphasis_time_constant in us for wbfm. 'us' or 'eu' for 75/50 us (default: us)]
+\t[-o oversampling (default: 1, 4 recommended)]
+\t[-p ppm_error (default: 0)]
+\t[-E enable_option (default: none)]
+\t\tuse multiple -E to enable multiple options
+\t\tedge, rdc, adc, dc, rtlagc, agc, deemp, direct, no-mod, offset, zero, wav
+\t\thq:     high-quality DSP (polyphase sinc resampler + anti-alias
+\t\t        FIR decimator; beyond the reference, ~+60 dB audio SNR)
+\t\tshard:  offline multi-device demod — the whole capture is split
+\t\t        into time shards (one per device) with overlap-save halo
+\t\t        warm-up; single frequency, no squelch (file sources)
+\t[-q dc_avg_factor for option rdc (default: 9)]
+\tfilename ('-' means stdout)
+Experimental options:
+\t[-r resample_rate (default: none / same as -s)]
+\t[-t squelch_delay (default: 10)]
+\t\t+values will mute/scan, -values will exit
+\t[-F fir_size (default: off)]
+\t\t0 or 9: the reference's fifth-order + droop cascade
+\t\t>9: windowed-sinc anti-alias FIR with that many taps (better SNR)
+\t[-A std/fast/lut/ale choose atan math (default: std)]
+\t[-b blocks_per_dispatch (default: 16)]
+\t\tlatency/throughput knob: 1 = per-block streaming (lowest
+\t\tlatency), N>1 amortizes device dispatch over N blocks
+\t[--checkpoint path  periodically snapshot DSP state (resumable)]
+\t[--checkpoint-every N  blocks between snapshots (default: per chunk)]
+\t[--resume path  restore a snapshot; with a file output, rewinds the
+\t\toutput to the snapshot point so the result is bit-identical
+\t\tto an uninterrupted run (single-frequency only)]
+\t[--blocks N  stop after N input blocks (offline processing)]
+\t[--int-audio  bit-exact integer fidelity tier: the reference's integer
+\t\taudio chain (trunc-cast rescale, integer discriminators, deemph
+\t\trounding-toward-average, truncating DC block and resampler) runs
+\t\ton device and the PCM matches the C bit-for-bit; fm(-A
+\t\tfast/lut/ale)/am/usb/lsb, boxcar path, no squelch]
+
+Produces signed 16 bit ints, use Sox or aplay to hear them.
+"""
+
+MODE_ALIASES = {"fm": "fm", "nbfm": "fm", "nfm": "fm", "wbfm": "wbfm",
+                "wfm": "wbfm", "raw": "raw", "iq": "raw", "am": "am",
+                "usb": "usb", "lsb": "lsb"}
+
+
+def usage():
+    sys.stderr.write(USAGE + "\n")
+    raise SystemExit(1)
+
+
+def parse_freq_args(freq_args: list[str]) -> list[float]:
+    """Single freqs and ``lo:hi:step`` ranges (rtl_fm.c:1052-1070)."""
+    freqs: list[float] = []
+    for s in freq_args:
+        if ":" not in s:
+            freqs.append(atofs(s))
+            continue
+        parts = s.split(":")
+        if len(parts) != 3:
+            raise ValueError("use -f lower:upper:step")
+        start, stop, step = (atofs(p) for p in parts)
+        f = start
+        while f <= stop:
+            freqs.append(f)
+            f += step
+        if len(freqs) > FREQUENCIES_LIMIT:
+            raise ValueError(f"too many frequencies (max {FREQUENCIES_LIMIT})")
+    return freqs
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    try:
+        opts, args = getopt.getopt(
+            argv, "a:C:d:f:g:s:b:l:L:o:t:r:p:E:q:F:A:M:c:h:w:v",
+            ["checkpoint=", "checkpoint-every=", "resume=", "blocks=",
+             "int-audio"])
+    except getopt.GetoptError as e:
+        log("%s", str(e))
+        usage()
+
+    freq_args: list[str] = []
+    mode = "fm"
+    rate_in = 24000
+    rate_resample = 0
+    dev_query = ""
+    gain_str = None
+    bandwidth = 0.0
+    channel = 0
+    antenna = None
+    squelch_level = 0.0
+    level_interval = 0
+    deemph_arg = "us"
+    post_downsample = 1
+    ppm_error = 0.0
+    squelch_delay = 10
+    fir_size = -1
+    atan_name = "std"
+    rdc_const = 9
+    verbosity = 0
+    enables: list[str] = []
+    deemph = False
+    wb_mode = False
+    chunk_blocks = 16
+    checkpoint_path = None
+    checkpoint_every = 0
+    resume_path = None
+    max_blocks = None
+    int_audio = False
+
+    for opt, arg in opts:
+        if opt == "-f":
+            freq_args.append(arg)
+        elif opt == "-M":
+            if arg not in MODE_ALIASES:
+                log("Unknown modulation '%s'", arg)
+                usage()
+            mode = MODE_ALIASES[arg]
+            if mode == "wbfm":
+                # preset expansion happens IN the option loop like the
+                # reference's getopt case (rtl_fm.c:1331-1341), so later
+                # flags (-l, -A, -r) override preset values and earlier
+                # ones are clobbered — order-sensitive, faithfully.
+                # (post_downsample=4 is commented out there too.)
+                mode = "fm"
+                wb_mode = True
+                rate_in = 170000
+                rate_resample = 32000
+                atan_name = "fast"
+                deemph = True
+                squelch_level = 0.0
+        elif opt == "-s":
+            rate_in = int(atofs(arg))
+        elif opt == "-r":
+            rate_resample = int(atofs(arg))
+        elif opt == "-d":
+            dev_query = arg
+        elif opt == "-g":
+            gain_str = arg
+        elif opt == "-w":
+            bandwidth = atofs(arg)
+        elif opt == "-C":
+            channel = int(arg)
+        elif opt == "-a":
+            antenna = arg
+        elif opt == "-l":
+            squelch_level = float(atofs(arg))
+        elif opt == "-L":
+            level_interval = int(arg)
+        elif opt == "-c":
+            deemph_arg = arg
+        elif opt == "-o":
+            post_downsample = int(arg)
+        elif opt == "-p":
+            ppm_error = atofs(arg)
+        elif opt == "-t":
+            squelch_delay = int(arg)
+        elif opt == "-F":
+            fir_size = int(arg)
+        elif opt == "-A":
+            atan_name = arg
+        elif opt == "-q":
+            rdc_const = int(arg)
+        elif opt == "-v":
+            verbosity += 1
+        elif opt == "-E":
+            enables.append(arg)
+        elif opt == "-b":
+            chunk_blocks = max(1, int(arg))
+        elif opt == "--checkpoint":
+            checkpoint_path = arg
+        elif opt == "--checkpoint-every":
+            checkpoint_every = int(arg)
+        elif opt == "--resume":
+            resume_path = arg
+        elif opt == "--blocks":
+            max_blocks = int(arg)
+        elif opt == "--int-audio":
+            int_audio = True
+        elif opt == "-h":
+            usage()
+
+    deemph = deemph or "deemp" in enables
+
+    if not freq_args:
+        usage()
+    try:
+        freqs = parse_freq_args(freq_args)
+    except ValueError as e:
+        log("%s", str(e))
+        return 1
+    if len(freqs) > 1 and squelch_level <= 0:
+        log("Please specify a squelch level.  Required for scanning multiple frequencies.")
+        return 1
+    if len(freqs) >= FREQUENCIES_LIMIT:
+        log("Too many channels, maximum %d.", FREQUENCIES_LIMIT)
+        return 1
+    if wb_mode:
+        # controller's wbfm tuning offset (rtl_fm.c:1006-1011): nudge off
+        # the station center so the DC spur lands between channels
+        freqs = [f + 16000 for f in freqs]
+
+    # flags whose paths are not yet ported: one line naming the flag, exit 1
+    unported = [flag for flag, on in (
+        ("--int-audio", int_audio),
+        ("-E shard", "shard" in enables),
+        ("--checkpoint/--resume", checkpoint_path or resume_path
+         or checkpoint_every),
+        ("-b 1", chunk_blocks == 1),
+        ("-F", fir_size >= 0),
+        ("-E hq", "hq" in enables),
+        ("-E rdc", "rdc" in enables),
+        ("scanning over several -f", len(freqs) > 1)) if on]
+    if unported:
+        log("rx_fm: %s is not yet ported to rx_tools_tpu_torch.", unported[0])
+        return 1
+    device = resolve_device()
+
+    offset_tuning = "offset" in enables or bandwidth > 0
+    edge = 1 if "edge" in enables else 0
+
+    # rate_in *= post_downsample (rtl_fm.c:1371); rate_out keeps the -s value
+    rate_demod = rate_in * post_downsample
+    rate_out = rate_in
+
+    # deemphasis coefficient (rtl_fm.c:1343-1350,1410-1415)
+    deemph_a = 0
+    if deemph:
+        tc_us = {"us": 75, "eu": 50}.get(deemph_arg)
+        if tc_us is None:
+            tc_us = int(float(deemph_arg))
+        deemph_a = ops.deemph_alpha(rate_out, tc_us)
+
+    cfg = fmchain.FmConfig(
+        mode=mode, rate_in=rate_demod, rate_out=rate_out,
+        rate_out2=rate_resample if rate_resample > 0 else -1,
+        downsample=1,
+        custom_atan=ops.disc_mode(atan_name),
+        post_downsample=post_downsample, deemph_a=deemph_a,
+        dc_block_audio=("dc" in enables or "adc" in enables),
+        squelch_level=squelch_level,
+        squelch_zero="zero" in enables,
+        conseq_squelch=abs(squelch_delay) if squelch_delay else 10,
+        offset_tuning=offset_tuning)
+
+    # capture planning (optimal_settings, rtl_fm.c:960-997); wbfm-style
+    # +16k hop offset skipped: synthetic/file sources have no DC spur
+    cfg, capture_freq0, capture_rate = fmchain.plan_capture(cfg, freqs[0], edge)
+    if verbosity:
+        log("Oversampling input by: %ix.", cfg.downsample)
+        log("Buffer size: %0.2fms",
+            1000 * 0.5 * fmchain.block_samples(cfg) * 2 / capture_rate)
+
+    # --- device setup (stdout suppressed, rtl_fm.c:1389) -----------------
+    with common.suppress_stdout():
+        src = common.verbose_device_search(dev_query)
+        if "direct" in enables:
+            common.verbose_direct_sampling(src, 1)
+        if "no-mod" in enables:
+            common.verbose_direct_sampling(src, 3)
+        if "offset" in enables:
+            common.verbose_offset_tuning(src)
+        if antenna:
+            common.verbose_antenna_str_set(src, antenna)
+        common.verbose_gain_str_set(src, gain_str)
+        # setGainMode called unconditionally with the -E rtlagc/agc flag,
+        # AFTER gain setup, exactly like the reference (rtl_fm.c:1432);
+        # success is only logged when the sink actually accepted it
+        rtlagc = "rtlagc" in enables or "agc" in enables
+        r = src.set_gain_mode(rtlagc)
+        if rtlagc:
+            if r == 0:
+                log("Enabled digital AGC.")
+            else:
+                log("WARNING: Failed to enable digital AGC.")
+        common.verbose_ppm_set(src, ppm_error)
+        if bandwidth > 0:
+            common.verbose_set_bandwidth(src, bandwidth)
+        src.channel = channel
+        common.verbose_set_sample_rate(src, capture_rate)
+        log("Output at %u Hz.", cfg.rate_in // cfg.post_downsample)
+        common.verbose_set_frequency(src, capture_freq0)
+
+
+    out = common.open_output(args[0] if args else None)
+    if "wav" in enables:
+        write_wav_header(out, cfg.audio_rate(), stereo=(mode == "raw"))
+
+    # --- level meter (-L, rtl_fm.c:94-99,792-807) --------------------------
+    # one sample per demod pass; the FIRST pass prints immediately
+    # (printLevelNo starts at 1) and the mean divides by the interval, not
+    # the sample count — both reference quirks kept.
+    levels = {"remaining": 1, "sum": 0.0, "max": 0, "maxmax": 0}
+
+    def note_level(lvl: float):
+        if not level_interval:
+            return
+        lvl = int(lvl)
+        levels["remaining"] -= 1
+        levels["sum"] += lvl
+        levels["max"] = max(levels["max"], lvl)
+        levels["maxmax"] = max(levels["maxmax"], lvl)
+        if levels["remaining"] == 0:
+            log("%f, %d, %d, %d", levels["sum"] / level_interval,
+                levels["max"], levels["maxmax"], int(squelch_level))
+            levels["remaining"] = level_interval
+            levels["sum"] = 0.0
+            levels["max"] = 0
+
+    def sink(audio: np.ndarray, lvl: float):
+        note_level(lvl)
+        pcm = fmchain.audio_to_int16(audio)
+        out.write(pcm.tobytes())
+
+    runner = ChunkedFmRunner(cfg, src, sink, chunk=chunk_blocks,
+                             exit_on_squelch=squelch_delay < 0,
+                             device=device)
+    runner.warmup()
+    common.install_sigint(lambda *a: runner.stop())
+
+    # stdout stays suppressed through activation (driver chatter must not
+    # reach the data plane; rtl_fm.c:880, convenience.c:447-466)
+    with common.suppress_stdout():
+        src.activate()
+    try:
+        stats = runner.run(max_blocks=max_blocks)
+    finally:
+        src.deactivate()
+        src.close()
+        if out is not sys.stdout.buffer:
+            out.close()
+        else:
+            out.flush()
+    if verbosity:
+        log("Processed %d blocks (%d samples in, %d out, %.1fx realtime).",
+            stats.blocks, stats.samples_in, stats.samples_out,
+            stats.realtime_multiple(capture_rate))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,98 @@
+"""The port stands alone: it imports neither JAX nor the reference package,
+and it never drops to the CPU unless asked."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "rx_tools_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def _forbidden(name):
+    return (name == "jax" or name.startswith("jax.")
+            or name == "rx_tools_tpu" or name.startswith("rx_tools_tpu."))
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_no_jax_or_reference_imports(path):
+    bad = [n for n in _imports(path) if _forbidden(n)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys\n"
+            "import rx_tools_tpu_torch, rx_tools_tpu_torch.ops\n"
+            "import rx_tools_tpu_torch.apps.rx_fm, rx_tools_tpu_torch.stream\n"
+            "import rx_tools_tpu_torch.models.fmchunk\n"
+            "import rx_tools_tpu_torch.models.convert\n"
+            "import rx_tools_tpu_torch.kernels.build\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'rx_tools_tpu.')) or m == 'rx_tools_tpu']\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    """A machine without CUDA and no request for the CPU."""
+    monkeypatch.delenv("RX_PLATFORM", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_refuse_cpu_fallback(no_cuda, tmp_path):
+    from rx_tools_tpu_torch.apps import rx_fm
+    from rx_tools_tpu_torch.device import resolve_device
+    from rx_tools_tpu_torch.iq.sources import make_source
+    from rx_tools_tpu_torch.models import convert, fmchain
+    from rx_tools_tpu_torch.stream.chunked import ChunkedFmRunner
+
+    cfg = fmchain.FmConfig()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fmchain.init_state(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ChunkedFmRunner(cfg, make_source("synth=fm"), lambda a, lvl: None)
+    st = fmchain.init_state(cfg, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.fm_state_from_numpy(convert.fm_state_to_numpy(st))
+    out = tmp_path / "a.raw"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rx_fm.main(["-f", "100.3M", "-M", "wbfm", "-d", "synth=fm",
+                    "--blocks", "1", str(out)])
+    assert not out.exists()
+
+
+def test_kernel_wrappers_refuse_non_cuda_tensors():
+    from rx_tools_tpu_torch.ops import frontend_mxu, fused_frontend
+    x = torch.zeros(2 * 6 * 8, dtype=torch.int16)
+    with pytest.raises(ValueError, match="CUDA"):
+        frontend_mxu._launch_head(x, 6, True, False, "K1")
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_frontend.fused_capture_fm(torch.zeros(2), x, 6, 8)
+    # the plain versions serve CPU tensors: no kernel launch is counted
+    before = frontend_mxu.capture_frontend_mm_pallas.launches
+    frontend_mxu.capture_frontend_mm_pallas(x, 6)
+    assert frontend_mxu.capture_frontend_mm_pallas.launches == before
+    assert np.all(frontend_mxu.capture_head_plain(x, 6)[0].numpy() == 0)

@@ -1,0 +1,85 @@
+"""The port's rx_fm CLI against the reference CLI on the same CS16 capture
+(modelled on tests/test_apps.py:60-80), and its sources against the
+reference's."""
+
+import numpy as np
+import pytest
+import torch
+
+from rx_tools_tpu.apps import rx_fm as ref_rx_fm
+from rx_tools_tpu.iq import sources as ref_sources
+from rx_tools_tpu_torch.apps import rx_fm
+from rx_tools_tpu_torch.iq import sources
+
+torch.set_num_threads(2)
+
+SYNTH = "synth=fm,audio=1k,dev=75k,amp=0.8,noise=0.001,carrier=100.3M"
+
+
+@pytest.fixture(autouse=True)
+def _cpu_platform(monkeypatch):
+    monkeypatch.setenv("RX_PLATFORM", "cpu")
+
+
+def _capture(n, rate=1_020_000, tune=100.555e6):
+    """A WBFM capture with the station at -fs/4 of the file centre, so the
+    chain's derotation recentres it (as tests/test_apps.py records it)."""
+    src = sources.make_source(SYNTH)
+    src.set_sample_rate(rate)
+    src.set_frequency(tune)
+    got, iq = src.read_stream(n)
+    assert got == n
+    return iq
+
+
+def test_synth_source_matches_reference():
+    for query in (SYNTH, "synth=tone,amp=0.3", "synth=noise,seed=4"):
+        a, b = sources.make_source(query), ref_sources.make_source(query)
+        for s in (a, b):
+            s.set_sample_rate(1_020_000)
+            s.set_frequency(100.555e6)
+        for n in (1000, 4096):
+            np.testing.assert_array_equal(a.read_stream(n)[1],
+                                          b.read_stream(n)[1])
+
+
+def test_rx_fm_wbfm_matches_reference_cli(tmp_path):
+    cap = tmp_path / "cap.cs16"
+    _capture(17 * 8208).tofile(cap)
+    args = ["-f", "100.3M", "-M", "wbfm", "-b", "8",
+            "-d", f"file={cap},format=CS16,rate=1020k"]
+    out_ref, out = tmp_path / "ref.raw", tmp_path / "port.raw"
+    assert ref_rx_fm.main(args + [str(out_ref)]) == 0
+    assert rx_fm.main(args + [str(out)]) == 0
+    want = np.fromfile(out_ref, np.int16)
+    pcm = np.fromfile(out, np.int16)
+    assert pcm.size == want.size > 4000
+    assert np.abs(pcm.astype(int) - want.astype(int)).max() <= 1
+    a = pcm[1000:].astype(np.float64)
+    a -= a.mean()
+    sp = np.abs(np.fft.rfft(a * np.hanning(a.size))) ** 2
+    fr = np.fft.rfftfreq(a.size, 1 / 32000)
+    assert abs(fr[np.argmax(sp)] - 1000.0) < 20
+
+
+@pytest.mark.parametrize("flags,name", [
+    (["--int-audio"], "--int-audio"),
+    (["-E", "shard"], "-E shard"),
+    (["--checkpoint", "ck.npz"], "--checkpoint/--resume"),
+    (["--resume", "ck.npz"], "--checkpoint/--resume"),
+    (["-b", "1"], "-b 1"),
+    (["-F", "9"], "-F"),
+    (["-E", "hq"], "-E hq"),
+    (["-E", "rdc"], "-E rdc"),
+    (["-l", "40", "-f", "101M"], "scanning over several -f"),
+])
+def test_unported_flags_exit_1(flags, name, capsys, tmp_path):
+    rc = rx_fm.main(["-f", "100.3M", "-M", "wbfm", "-d", SYNTH] + flags
+                    + [str(tmp_path / "out.raw")])
+    assert rc == 1
+    err = capsys.readouterr().err
+    assert name in err and "not yet ported" in err
+
+
+def test_rx_fm_scan_requires_squelch():
+    assert rx_fm.main(["-f", "100M", "-f", "101M"]) == 1
