@@ -17,7 +17,12 @@ Phases, in order:
    the reference's K2 tolerances with its ulp distance reported; each
    timed with CUDA events at config #1 (median of rounds after warmup,
    launches queued behind a device-side sleep so host overhead is not
-   timed, inputs rotated through more than the 50 MB L2);
+   timed, inputs rotated through more than the 50 MB L2); the edge cases
+   of the tiled kernels (views off 16-byte alignment, one block, the
+   fused kernel's ticket reset and grid-size independence); the head's
+   library yardstick (the TPU kernel's matrix product through cuBLAS,
+   held bit for bit); a size sweep of K1 and K2 at 1, 12 and 48 blocks
+   with a least-squares fit of fixed cost and streaming rate;
 3. the main path: config #1 WBFM (2.4 Msps, the port's synth=fm with a
    1 kHz tone, 8 chunks, ~10 s of signal) through ``ChunkedFmRunner``
    (scan engine) — K1 must launch, the tone must come back, and the PCM
@@ -33,7 +38,6 @@ Phases, in order:
 """
 
 import json
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -69,29 +73,6 @@ def tone_hz(pcm):
     return float(np.fft.rfftfreq(a.size, 1 / AUDIO_RATE)[np.argmax(sp)])
 
 
-def time_ms(fn, args_list, rounds=5, iters=20):
-    """Median per-call device time of ``fn(*args)`` over ``rounds`` rounds
-    of ``iters`` calls, inputs rotated through ``args_list``.  Each round
-    queues behind a device-side sleep, so the card runs the calls back to
-    back and the host's enqueue time is not measured."""
-    import torch
-    for a in args_list[:2]:
-        fn(*a)                                   # warmup
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(100_000_000)
-        start.record()
-        for i in range(iters):
-            fn(*args_list[i % len(args_list)])
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
-
-
 def bound(bytes_moved, ops):
     by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     by_ops = ops / FP32_OPS_PER_S * 1e3
@@ -120,6 +101,7 @@ def main():
     from rx_tools_tpu_torch.apps import rx_fm
     from rx_tools_tpu_torch.iq.sources import make_source
     from rx_tools_tpu_torch.kernels import build
+    from rx_tools_tpu_torch.kernels.timing import time_ms
     from rx_tools_tpu_torch.models import fmchain
     from rx_tools_tpu_torch.ops import frontend_mxu, fused_frontend
     from rx_tools_tpu_torch.ops import pallas_frontend
@@ -186,6 +168,43 @@ def main():
               f"{float(((lg - lp).abs() / lp.abs()).max()):.3g}")
         report[geom] = dict(x=x, d=d, kpb=kpb, d_err=d_err, d_ulps=d_ulps)
 
+    # edge cases of the tiled kernels at config #1: views 4, 8 and 12
+    # bytes past a 16-byte boundary (the kernels bulk-copy each tile's
+    # 16-byte superset), one block (the per-block path), launches of
+    # different block counts in a row (the fused kernel's ticket counter
+    # must be back at zero) and two forced grid sizes (same levels)
+    d, kpb, x = 14, 18432, report["config1"]["x"]
+    prev = torch.tensor([3.0, -2.0], device=dev)
+    for off in (2, 4, 6):
+        xo = x[off:off + 2 * d * kpb * 11]
+        zi, zq = frontend_mxu.capture_head_plain(xo, d)
+        g1, g4 = k1(xo, d), k4(xo, d)
+        if not (torch.equal(g1[0], zi) and torch.equal(g1[1], zq)
+                and torch.equal(g4[0], zi) and torch.equal(g4[1], zq)
+                and torch.equal(k3(xo, d), torch.stack([zi, zq], dim=-1))):
+            fail(f"the head differs from its plain version {2 * off} bytes "
+                 "off 16-byte alignment")
+        dg, lg, _ = k2(prev, xo, d, kpb)
+        _, dp, lp = fused_frontend.fused_capture_fm_plain(prev, xo, d, kpb)
+        if not (torch.equal(dg, dp)
+                and torch.allclose(lg, lp, rtol=1e-5, atol=1e-3)):
+            fail(f"K2 differs from its plain version {2 * off} bytes off "
+                 "16-byte alignment")
+    one = x[:2 * d * kpb]
+    d1, l1, _ = k2(prev, one, d, kpb)
+    _, dp1, lp1 = fused_frontend.fused_capture_fm_plain(prev, one, d, kpb)
+    if not (torch.equal(d1, dp1)
+            and torch.allclose(l1, lp1, rtol=1e-5, atol=1e-3)):
+        fail("K2 differs from its plain version on one block")
+    _, l12a, _ = k2(prev, x, d, kpb)
+    _, l1b, _ = k2(prev, one, d, kpb)
+    _, l12b, _ = k2(prev, x, d, kpb, grid=7)
+    if not (torch.equal(l12a, l12b) and torch.equal(l1b, l1)
+            and torch.equal(l1, l12a[:1])):
+        fail("K2's levels change between launches or grid sizes")
+    print("edge cases: offset views (4, 8, 12 B) bitwise, one block, "
+          "ticket reset across m = 12, 1, 12 and grid sizes: levels bitwise")
+
     # timing at the main path's shapes (config #1 chunk)
     cfg1 = report["config1"]
     d, kpb = cfg1["d"], cfg1["kpb"]
@@ -223,6 +242,29 @@ def main():
             source="rx_tools_tpu_torch/kernels/csrc/fused_capture_fm.cu",
             replaces="rx_tools_tpu/ops/fused_frontend.py:149"),
     }
+    # the library yardstick of the head: the TPU kernel's own body, one
+    # matrix product against the block-banded mask matrix (cast, cuBLAS
+    # mm in full float32, scale); every partial sum at D = 14 is an
+    # integer below 2**24, so it is exact and held bit for bit
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mat = torch.from_numpy(frontend_mxu._fs4_decim_matrix(d, 32, True)).to(
+        dev)
+    scale = float(pallas_frontend._SCALE)
+
+    def head_library(xx, dd):
+        return (xx.view(-1, 32 * 2 * dd).float() @ mat) * scale
+
+    lib_out = head_library(x0, d)
+    plain_i, plain_q = frontend_mxu.capture_head_plain(x0, d)
+    if not (torch.equal(lib_out[:, :32].reshape(-1), plain_i)
+            and torch.equal(lib_out[:, 32:].reshape(-1), plain_q)):
+        fail("the head's library yardstick differs from the plain version")
+    library_ms = time_ms(head_library, bufs)
+    for name in ("capture_frontend_mm_pallas", "capture_frontend_pallas",
+                 "capture_frontend_mm_pallas2"):
+        kern[name]["library_ms"] = library_ms
+    print(f"head library yardstick (cast, cuBLAS mm, scale): bitwise equal "
+          f"to the plain version, {library_ms:.6f} ms")
     for name, k in kern.items():
         k["ms"] = time_ms(k["fn"], k["args"])
         k["plain_ms"] = time_ms(k["plain"], k["args"], iters=5)
@@ -231,8 +273,35 @@ def main():
         print(json.dumps({"kernel": name, "shape": f"{m_blocks} x {kpb * d}"
                           f" samples, D={d}", "ms": k["ms"],
                           "bound_ms": k["bound_ms"],
-                          "plain_ms": k["plain_ms"]}))
-    del bufs, fbufs, report
+                          "plain_ms": k["plain_ms"],
+                          "library_ms": k.get("library_ms")}))
+    del bufs, fbufs, report, lib_out
+
+    # size sweep: K1 and K2 at 1, 12 and 48 blocks of config #1, inputs
+    # rotated through more than twice the L2; ms = a + b * bytes fitted
+    # by least squares gives the fixed cost a and the streaming rate 1/b
+    block_n = kpb * d
+    for name, fn, out_per_k in (
+            ("capture_frontend_mm_pallas", lambda xx: k1(xx, d), 8),
+            ("fused_capture_fm", lambda xx: fused_frontend.fused_capture_fm(
+                prev, xx, d, kpb), 4)):
+        pts = []
+        for mb in (1, 12, 48):
+            n_bytes = mb * block_n * 4 + mb * kpb * out_per_k
+            sw = [(torch.randint(-32768, 32767, (mb * 2 * block_n,),
+                                 generator=gen, device=dev,
+                                 dtype=torch.int32).to(torch.int16),)
+                  for _ in range(max(3, -(-120_000_000 // n_bytes)))]
+            pts.append((n_bytes, time_ms(fn, sw, iters=max(20, len(sw)))))
+            del sw
+        xs = np.array([p[0] for p in pts], float)
+        ys = np.array([p[1] for p in pts], float)
+        b, a = np.polyfit(xs, ys, 1)
+        print(json.dumps({"sweep": name, "blocks": [1, 12, 48],
+                          "bytes": [int(v) for v in xs],
+                          "ms": [float(v) for v in ys],
+                          "fixed_us": float(a * 1e3),
+                          "tb_per_s": float(1e-9 / b)}))
 
     # ---- phase 3: the main path at config #1 ----------------------------
     rate_in = CAPTURE_RATE // 14
@@ -347,7 +416,8 @@ def main():
                       "launches": path_counts[name],
                       "max_abs_err": k["err"], "ms": k["ms"],
                       "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                      "bound_by": k["bound_by"], "library_ms": None})
+                      "bound_by": k["bound_by"],
+                      "library_ms": k.get("library_ms")})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": lines}))

@@ -1,16 +1,18 @@
 """Build the CUDA kernels with nvcc and load them through ctypes.
 
-Each ``csrc/*.cu`` file compiles on its own into a shared library with a
-plain C interface::
+Each ``csrc/*.cu`` file compiles on its own, with the shared headers
+``csrc/*.cuh`` it includes, into a shared library with a plain C
+interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC [per-file flags] -o build/torch_kernels/lib<name>.so
 
 The build runs at first use (one nvcc process per source, all started
 together) into ``build/torch_kernels/`` at the checkout root, which git
-ignores; a library newer than its source is reused.  Nothing is built when
-this module is imported.  ``python -m rx_tools_tpu_torch.kernels.build``
-builds them all and prints what ptxas reports for each kernel.
+ignores; a library newer than its source and every header is reused.
+Nothing is built when this module is imported.
+``python -m rx_tools_tpu_torch.kernels.build`` builds them all and prints
+what ptxas reports for each kernel.
 """
 
 from __future__ import annotations
@@ -58,10 +60,18 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
-def _stale(name: str) -> bool:
-    lib = _lib_path(name)
-    src = CSRC / SOURCES[name][0]
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+def _inputs(name: str, csrc: Path = CSRC) -> list[Path]:
+    """The files a library is built from: its source and every shared
+    header in ``csrc`` (a header edit rebuilds every library)."""
+    return [csrc / SOURCES[name][0], *sorted(csrc.glob("*.cuh"))]
+
+
+def _stale(name: str, csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> bool:
+    lib = build_dir / f"lib{name}.so"
+    if not lib.exists():
+        return True
+    built = lib.stat().st_mtime
+    return any(f.stat().st_mtime > built for f in _inputs(name, csrc))
 
 
 def build(names=None, force: bool = False) -> None:

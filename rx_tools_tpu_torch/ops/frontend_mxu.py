@@ -10,7 +10,9 @@ over the interleaved int16 stream.  On the TPU it ran as a matrix product
 against the {+1, 0, -1} block-banded matrix (:func:`_fs4_decim_matrix`).
 Here the kernel ``kernels/csrc/capture_head.cu`` sums the same signed
 int16 terms in int32 per output sample and scales once, so the result is
-integer-exact and equals :func:`capture_head_plain` bit for bit.
+integer-exact and equals :func:`capture_head_plain` bit for bit.  It runs
+one resident wave of persistent CTAs over tiles whose size depends on D
+alone (``kernels/plan.py``), each fed by a ring of bulk-copied stages.
 
 Entry points (each a wrapper with a ``launches`` count of its CUDA
 launches; on a CPU tensor each runs the plain version):
@@ -31,11 +33,12 @@ import numpy as np
 import torch
 
 from rx_tools_tpu_torch import kernels
+from rx_tools_tpu_torch.kernels import plan
 from rx_tools_tpu_torch.ops.numeric import device_const
 from rx_tools_tpu_torch.ops.pallas_frontend import _SCALE, _fs4_decim_masks
 
-#: the kernel stages blockDim.x * D int16 pairs of at least 32 threads
-#: in shared memory (at most 227 KB)
+#: the kernel's ring holds two stages of at least 16 rows of D int16
+#: pairs in shared memory (at most 227 KB; ``kernels/plan.py``)
 _MAX_D = 1800
 
 
@@ -147,8 +150,11 @@ def capture_frontend_mm_i16(block_i16: torch.Tensor, downsample: int,
 
 
 def _launch_head(block_i16: torch.Tensor, downsample: int, rotate: bool,
-                 interleaved: bool, what: str):
-    """Launch ``capture_head.cu`` on a CUDA tensor; returns the outputs."""
+                 interleaved: bool, what: str, grid: int | None = None,
+                 tile_plan: plan.TilePlan | None = None):
+    """Launch ``capture_head.cu`` on a CUDA tensor; returns the outputs.
+    ``grid`` forces the number of CTAs (default: one resident wave) and
+    ``tile_plan`` the tiles (default: ``plan.plan("capture_head", D)``)."""
     kernels.require_cuda_int16(block_i16, what)
     d = int(downsample)
     if not 1 <= d <= _MAX_D:
@@ -161,11 +167,15 @@ def _launch_head(block_i16: torch.Tensor, downsample: int, rotate: bool,
     else:
         out_a = torch.empty(k, dtype=torch.float32, device=dev)
         out_b = torch.empty(k, dtype=torch.float32, device=dev)
+    p = tile_plan or plan.plan("capture_head", d)
+    if grid is None:
+        grid = kernels.grid(p, plan.head_tiles(p, k), dev)
     with torch.cuda.device(dev):
         err = kernels.lib("capture_head").rx_capture_head(
             block_i16.data_ptr(), out_a.data_ptr(),
             None if out_b is None else out_b.data_ptr(), k, d, int(rotate),
-            int(interleaved), float(_SCALE), kernels.stream_handle(dev))
+            int(interleaved), float(_SCALE), p.rows, p.stages, p.stage_bytes,
+            int(grid), kernels.stream_handle(dev))
     kernels.check(err, what)
     return out_a if interleaved else (out_a, out_b)
 

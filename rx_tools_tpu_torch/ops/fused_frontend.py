@@ -4,10 +4,10 @@ FM discriminator -> squelch-level partials (K2).
 Counterpart of :mod:`rx_tools_tpu.ops.fused_frontend`.  The CUDA kernel
 ``kernels/csrc/fused_capture_fm.cu`` keeps the decimated stream on chip from
 the capture head through the discriminator and writes only the
-discriminator output, per-CTA level partials and, from a second small pass
-over those, each block's RMS level; block seams (sample 0 of every block,
-std atan2 regardless of ``-A``, ``fm_demod`` rtl_fm.c:588-590) are
-computed in the kernel.
+discriminator output, per-tile level partials and, in the same launch
+(the last CTA to finish sums them), each block's RMS level; block seams
+(sample 0 of every block, std atan2 regardless of ``-A``, ``fm_demod``
+rtl_fm.c:588-590) are computed in the kernel.
 
 - :func:`fused_capture_fm` launches the kernel on a CUDA tensor and counts
   the launch;
@@ -26,6 +26,7 @@ import os
 import torch
 
 from rx_tools_tpu_torch import kernels
+from rx_tools_tpu_torch.kernels import plan
 from rx_tools_tpu_torch.ops.discriminators import polar_discriminant
 from rx_tools_tpu_torch.ops.filters import _rms_from_sums
 from rx_tools_tpu_torch.ops.frontend_mxu import capture_head_plain
@@ -33,7 +34,8 @@ from rx_tools_tpu_torch.ops.pallas_frontend import _SCALE
 
 _PI4 = float(1 << 12)
 _PI34 = float(3 * (1 << 12))
-#: the kernel stages (256 + 1) * D int16 pairs in shared memory (<= 227 KB)
+#: the kernel's ring holds two stages of at least 128 rows of D int16
+#: pairs in shared memory (at most 227 KB; ``kernels/plan.py``)
 _MAX_D = 200
 
 
@@ -60,14 +62,33 @@ def _check_geometry(blocks_flat: torch.Tensor, downsample: int,
     return blocks_flat.numel() // per_block
 
 
+_tickets: dict[tuple[str, int], torch.Tensor] = {}
+
+
+def _ticket(dev: torch.device, stream: int) -> torch.Tensor:
+    """The kernel's ticket counter on ``dev`` for ``stream``: one zeroed
+    uint32, allocated once; every launch leaves it at zero.  One per
+    stream, so launches on two streams never share a count."""
+    key = (str(dev), stream)
+    t = _tickets.get(key)
+    if t is None:
+        t = _tickets[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return t
+
+
 def fused_capture_fm(prev_iq: torch.Tensor, blocks_flat: torch.Tensor,
-                     downsample: int, k_per_block: int, rotate: bool = True):
-    """Launch the K2 kernel on a CUDA chunk of M blocks.
+                     downsample: int, k_per_block: int, rotate: bool = True,
+                     *, grid: int | None = None,
+                     tile_plan: plan.TilePlan | None = None):
+    """Launch the K2 kernel on a CUDA chunk of M blocks: one launch.
 
     Returns ``(d (K,), levels (M,), last (2,))``: the discriminator stream
-    with std-atan2 seams, each block's RMS level (from the CTAs' level
-    partials, combined in a fixed order by the kernel's second pass) and
-    the chunk's last decimated sample."""
+    with std-atan2 seams, each block's RMS level (the block's tile
+    partials summed in tile order by the last CTA to finish) and the
+    chunk's last decimated sample.  ``grid`` forces the number of CTAs
+    (default: one resident wave; the results do not depend on it) and
+    ``tile_plan`` the tiles (default: ``plan.plan("fused_capture_fm",
+    D)``)."""
     kernels.require_cuda_int16(blocks_flat, "fused_capture_fm")
     d = int(downsample)
     if not 1 <= d <= _MAX_D:
@@ -80,18 +101,22 @@ def fused_capture_fm(prev_iq: torch.Tensor, blocks_flat: torch.Tensor,
         raise ValueError("fused_capture_fm: prev_iq must be float32 (2,) "
                          "on the chunk's device")
     prev_iq = prev_iq.contiguous()
-    lib = kernels.lib("fused_capture_fm")
-    tiles = -(-int(k_per_block) // lib.rx_fused_tile())
+    p = tile_plan or plan.plan("fused_capture_fm", d)
+    tiles = m * plan.fused_tiles_per_block(p, k_per_block)
+    if grid is None:
+        grid = kernels.grid(p, tiles, dev)
     d_out = torch.empty(m * k_per_block, dtype=torch.float32, device=dev)
-    partials = torch.empty((m, tiles, 2), dtype=torch.float32, device=dev)
+    partials = torch.empty((tiles, 2), dtype=torch.float32, device=dev)
     levels = torch.empty(m, dtype=torch.float32, device=dev)
     last = torch.empty(2, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.rx_fused_capture_fm(
+        stream = kernels.stream_handle(dev)
+        err = kernels.lib("fused_capture_fm").rx_fused_capture_fm(
             blocks_flat.data_ptr(), prev_iq.data_ptr(), d_out.data_ptr(),
-            partials.data_ptr(), levels.data_ptr(), last.data_ptr(), m,
-            int(k_per_block), d, int(rotate), float(_SCALE),
-            kernels.stream_handle(dev))
+            partials.data_ptr(), levels.data_ptr(), last.data_ptr(),
+            _ticket(dev, stream).data_ptr(), m, int(k_per_block), d,
+            int(rotate), float(_SCALE), p.rows, p.threads, p.stages,
+            p.stage_bytes, int(grid), stream)
     kernels.check(err, "fused_capture_fm")
     fused_capture_fm.launches += 1
     return d_out, levels, last

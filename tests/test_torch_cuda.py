@@ -46,7 +46,12 @@ def test_capture_head_bitwise(cuda, d, k, rot):
 @pytest.mark.parametrize("d,kpb,m,rot", [(14, 18432, 12, True),
                                          (6, 1368, 16, True),
                                          (6, 1000, 3, False),
-                                         (14, 100, 2, True)])
+                                         (14, 100, 2, True),
+                                         (14, 18432, 1, True),
+                                         (14, 18432, 48, True),
+                                         # more tiles a block than the ring
+                                         # holds partials: summed from memory
+                                         (1, 100000, 2, True)])
 def test_fused_matches_plain(cuda, d, kpb, m, rot):
     x = _x(cuda, 2 * d * kpb * m, seed=kpb)
     prev = torch.tensor([3.0, -2.0], device=cuda)
@@ -60,6 +65,7 @@ def test_fused_matches_plain(cuda, d, kpb, m, rot):
     np.testing.assert_allclose(lg.cpu().numpy(), lp.cpu().numpy(),
                                rtol=1e-5, atol=1e-3)
     np.testing.assert_allclose(pg.cpu().numpy(), pp.cpu().numpy(), atol=1e-3)
+    assert torch.equal(dg, dp)      # 0 ulp, seams included
     # reruns give identical levels: no float atomics
     _, _, lg2 = fused_frontend.fused_capture_fm_demod(prev, x, d, kpb, rot)
     assert torch.equal(lg, lg2)
@@ -73,3 +79,88 @@ def test_wrappers_validate(cuda):
         frontend_mxu.capture_frontend_mm_pallas(x.to(torch.int32), 6)
     with pytest.raises(ValueError):
         frontend_mxu.capture_frontend_mm_pallas(x[:-2], 6)      # ragged
+
+
+def _offset_view(dev, n_int16, off_int16, seed):
+    """``n_int16`` values starting ``2 * off_int16`` bytes past a 16-byte
+    boundary (the kernels copy the 16-byte superset of each tile)."""
+    base = _x(dev, n_int16 + 8, seed=seed)
+    assert base.data_ptr() % 16 == 0
+    return base[off_int16:off_int16 + n_int16]
+
+
+@pytest.mark.parametrize("off", [2, 4, 6])
+@pytest.mark.parametrize("d,k", [(14, 221184), (6, 1001), (7, 333)])
+def test_capture_head_offset_views(cuda, d, k, off):
+    x = _offset_view(cuda, 2 * d * k, off, seed=k + off)
+    assert x.data_ptr() % 16 == 2 * off
+    zi, zq = frontend_mxu.capture_head_plain(x, d)
+    g1 = frontend_mxu.capture_frontend_mm_pallas(x, d)
+    g3 = pallas_frontend.capture_frontend_pallas(x, d)
+    torch.cuda.synchronize()
+    assert torch.equal(g1[0], zi) and torch.equal(g1[1], zq)
+    assert torch.equal(g3, torch.stack([zi, zq], dim=-1))
+
+
+@pytest.mark.parametrize("off", [2, 4, 6])
+@pytest.mark.parametrize("d,kpb,m", [(14, 18432, 12), (6, 1000, 3)])
+def test_fused_offset_views(cuda, d, kpb, m, off):
+    x = _offset_view(cuda, 2 * d * kpb * m, off, seed=kpb + off)
+    prev = torch.tensor([1.5, 0.5], device=cuda)
+    dg, lg, last = fused_frontend.fused_capture_fm(prev, x, d, kpb)
+    pp, dp, lp = fused_frontend.fused_capture_fm_plain(prev, x, d, kpb)
+    torch.cuda.synchronize()
+    assert torch.equal(dg, dp)
+    np.testing.assert_allclose(lg.cpu().numpy(), lp.cpu().numpy(),
+                               rtol=1e-5, atol=1e-3)
+    assert torch.equal(last, pp)
+
+
+def test_fused_ticket_resets_between_launches(cuda):
+    """Launches of different m in a row: each finds the counter at zero
+    (the last CTA resets it), so the levels repeat bit for bit."""
+    d, kpb = 14, 18432
+    x = _x(cuda, 2 * d * kpb * 48, seed=11)
+    prev = torch.zeros(2, device=cuda)
+    _, lv48, _ = fused_frontend.fused_capture_fm(prev, x, d, kpb)
+    _, lv1, _ = fused_frontend.fused_capture_fm(prev, x[:2 * d * kpb], d,
+                                                kpb)
+    _, lv12, _ = fused_frontend.fused_capture_fm(
+        prev, x[:2 * d * kpb * 12], d, kpb)
+    _, lv48b, _ = fused_frontend.fused_capture_fm(prev, x, d, kpb)
+    torch.cuda.synchronize()
+    assert torch.equal(lv48, lv48b)
+    assert torch.equal(lv1, lv48[:1]) and torch.equal(lv12, lv48[:12])
+
+
+@pytest.mark.parametrize("grids", [(1, None), (7, 1000)])
+def test_results_do_not_depend_on_grid(cuda, grids):
+    d, kpb, m = 14, 18432, 12
+    x = _x(cuda, 2 * d * kpb * m, seed=5)
+    prev = torch.tensor([3.0, -2.0], device=cuda)
+    outs = [fused_frontend.fused_capture_fm(prev, x, d, kpb, grid=g)
+            for g in grids]
+    heads = [frontend_mxu._launch_head(x, d, True, False, "grid", grid=g)
+             for g in grids]
+    torch.cuda.synchronize()
+    (d0, l0, p0), (d1, l1, p1) = outs
+    assert torch.equal(d0, d1) and torch.equal(l0, l1) and torch.equal(p0, p1)
+    assert all(torch.equal(a, b) for a, b in zip(*heads))
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+def test_fused_tile_plans(cuda, rows):
+    """Other tile sizes than the plan's: d bit for bit, levels within the
+    reference's tolerance."""
+    from rx_tools_tpu_torch.kernels import plan
+    d, kpb, m = 14, 18432, 3
+    p = plan.plan("fused_capture_fm", d, rows, 2)
+    x = _x(cuda, 2 * d * kpb * m, seed=rows)
+    prev = torch.tensor([3.0, -2.0], device=cuda)
+    dg, lg, last = fused_frontend.fused_capture_fm(prev, x, d, kpb,
+                                                   tile_plan=p)
+    pp, dp, lp = fused_frontend.fused_capture_fm_plain(prev, x, d, kpb)
+    torch.cuda.synchronize()
+    assert torch.equal(dg, dp) and torch.equal(last, pp)
+    np.testing.assert_allclose(lg.cpu().numpy(), lp.cpu().numpy(),
+                               rtol=1e-5, atol=1e-3)
