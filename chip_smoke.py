@@ -21,7 +21,8 @@ Phases, in order:
    of the tiled kernels (views off 16-byte alignment, one block, the
    fused kernel's ticket reset and grid-size independence); the head's
    library yardstick (the TPU kernel's matrix product through cuBLAS,
-   held bit for bit); a size sweep of K1 and K2 at 1, 12 and 48 blocks
+   held bit for bit); K2 in its planned wave of persistent CTAs against
+   one CTA a tile; a size sweep of K1 and K2 at 1, 12 and 48 blocks
    with a least-squares fit of fixed cost and streaming rate;
 3. the main path: config #1 WBFM (2.4 Msps, the port's synth=fm with a
    1 kHz tone, 8 chunks, ~10 s of signal) through ``ChunkedFmRunner``
@@ -100,7 +101,8 @@ def main():
     from rx_tools_tpu_torch import ops
     from rx_tools_tpu_torch.apps import rx_fm
     from rx_tools_tpu_torch.iq.sources import make_source
-    from rx_tools_tpu_torch.kernels import build
+    from rx_tools_tpu_torch import kernels
+    from rx_tools_tpu_torch.kernels import build, plan
     from rx_tools_tpu_torch.kernels.timing import time_ms
     from rx_tools_tpu_torch.models import fmchain
     from rx_tools_tpu_torch.ops import frontend_mxu, fused_frontend
@@ -275,6 +277,17 @@ def main():
                           "bound_ms": k["bound_ms"],
                           "plain_ms": k["plain_ms"],
                           "library_ms": k.get("library_ms")}))
+    # what K2's persistent runs are worth at config #1: its planned wave
+    # (CTAs of one or two tiles) against one CTA a tile, alternated
+    tiles = m_blocks * plan.fused_tiles_per_block(
+        plan.plan("fused_capture_fm", d), kpb)
+    wave = kernels.grid(plan.plan("fused_capture_fm", d), tiles, dev)
+    grid_ms = {}
+    for g in (wave, tiles, wave, tiles):
+        grid_ms.setdefault(f"grid {g}", []).append(
+            time_ms(lambda *a, g=g: k2(*a, grid=g), fbufs))
+    print(json.dumps({"kernel": "fused_capture_fm", "tiles": tiles,
+                      "planned_grid": wave, "ms_by_grid": grid_ms}))
     del bufs, fbufs, report, lib_out
 
     # size sweep: K1 and K2 at 1, 12 and 48 blocks of config #1, inputs

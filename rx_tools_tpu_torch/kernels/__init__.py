@@ -6,8 +6,7 @@ the fused front); this package builds the libraries (:mod:`.build`),
 declares the C signatures, plans the kernels' tiles (:mod:`.plan`) and
 sizes their grid to one resident wave (:func:`grid`).  Every C entry point
 returns ``cudaGetLastError()`` after its launch; :func:`check` raises on
-non-zero.  ``python -m rx_tools_tpu_torch.kernels.sweep`` times both
-kernels under other tile plans.
+non-zero.
 """
 
 from __future__ import annotations
@@ -70,7 +69,7 @@ def grid(p, n_tiles: int, device: torch.device) -> int:
     tiles."""
     from rx_tools_tpu_torch.kernels import plan
     index = torch.cuda._get_device_index(device, optional=True)
-    return plan.grid(p, n_tiles, _sm_count(index),
+    return plan.grid(n_tiles, _sm_count(index),
                      _ctas_per_sm(p.kernel, p.rows, p.threads, p.smem, index))
 
 

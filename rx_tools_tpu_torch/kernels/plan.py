@@ -22,13 +22,8 @@ import dataclasses
 import functools
 
 #: shared memory one CTA may use on the H100 (227 KB, as opt-in dynamic
-#: shared memory above 48 KB), the SM's total, and what the SM keeps back
-#: for each resident CTA
+#: shared memory above 48 KB)
 SMEM_PER_CTA = 232_448
-SMEM_PER_SM = 233_472
-SMEM_RESERVED_PER_CTA = 1_024
-MAX_THREADS_PER_SM = 2_048
-MAX_CTAS_PER_SM = 32
 
 #: a CTA has at most this many threads, one output sample of a tile each
 MAX_THREADS = 256
@@ -40,7 +35,7 @@ MAX_STAGES = 4
 #: over each block's tile partials stays short
 TILE_ROWS = {"capture_head": 64, "fused_capture_fm": 256}
 #: ring depth: double buffering.  At the main path's sizes a CTA walks one
-#: or two tiles, and deeper rings only cost resident CTAs (kernels/sweep.py)
+#: or two tiles, and deeper rings only cost resident CTAs (PERF.md)
 STAGES = 2
 
 #: extra input rows a stage holds beside its tile: the fused kernel's
@@ -83,44 +78,28 @@ class TilePlan:
         """Dynamic shared memory of one CTA: the ring."""
         return self.stages * self.stage_bytes
 
-    @property
-    def ctas_per_sm(self) -> int:
-        """CTAs per SM that threads and shared memory allow (an upper
-        bound: registers may allow fewer)."""
-        by_smem = SMEM_PER_SM // (self.smem + STATIC_BYTES[self.kernel]
-                                  + SMEM_RESERVED_PER_CTA)
-        return max(1, min(MAX_THREADS_PER_SM // self.threads,
-                          MAX_CTAS_PER_SM, by_smem))
-
 
 @functools.lru_cache(maxsize=None)
-def plan(kernel: str, d: int, rows: int | None = None,
-         stages: int | None = None) -> TilePlan:
+def plan(kernel: str, d: int) -> TilePlan:
     """The tile plan of ``kernel`` ("capture_head" or "fused_capture_fm")
-    at decimation ``d``.  ``rows`` is the largest power of two up to
+    at decimation ``d``: tiles of the largest power of two of rows up to
     :data:`TILE_ROWS` whose ring of :data:`STAGES` stages fits in one CTA's
-    shared memory.  Either may be given to override the rule (size
-    sweeps); the result is checked against the kernels' and the card's
-    limits all the same."""
+    shared memory.  Raises when none fits the kernel."""
     if kernel not in STATIC_BYTES:
         raise ValueError(f"unknown kernel {kernel!r}")
     d = int(d)
     if d < 1:
         raise ValueError(f"downsample {d} < 1")
     budget = SMEM_PER_CTA - STATIC_BYTES[kernel]
-    n_stages = STAGES if stages is None else int(stages)
-    if rows is None:
-        rows = TILE_ROWS[kernel]
-        while rows > 1 and n_stages * stage_bytes(rows + HALO_ROWS[kernel],
-                                                     d) > budget:
-            rows //= 2
-    p = TilePlan(kernel, d, int(rows), n_stages,
-                 stage_bytes(int(rows) + HALO_ROWS[kernel], d))
-    if not (1 <= p.rows <= MAX_THREADS and 1 <= p.stages <= MAX_STAGES
-            and p.smem <= budget):
+    rows = TILE_ROWS[kernel]
+    while rows > 1 and STAGES * stage_bytes(rows + HALO_ROWS[kernel],
+                                            d) > budget:
+        rows //= 2
+    p = TilePlan(kernel, d, rows, STAGES,
+                 stage_bytes(rows + HALO_ROWS[kernel], d))
+    if p.smem > budget:
         raise ValueError(f"{kernel}: no tile plan fits D={d} "
-                         f"(rows {p.rows}, stages {p.stages}, "
-                         f"{p.smem} B of shared memory)")
+                         f"({p.smem} B of shared memory)")
     if kernel == "fused_capture_fm" and p.rows % 32:
         # the fused kernel sums its level partials by whole warps
         raise ValueError(f"fused_capture_fm: D={d} leaves tiles of "
@@ -128,14 +107,11 @@ def plan(kernel: str, d: int, rows: int | None = None,
     return p
 
 
-def grid(p: TilePlan, n_tiles: int, sms: int,
-         ctas_per_sm: int | None = None) -> int:
+def grid(n_tiles: int, sms: int, ctas_per_sm: int) -> int:
     """CTAs to launch: one resident wave of ``ctas_per_sm`` CTAs on each
-    of ``sms`` SMs, and never more than tiles.  ``ctas_per_sm`` defaults
-    to :attr:`TilePlan.ctas_per_sm` (threads and shared memory only); the
-    wrappers pass the card's own count, which also counts registers."""
-    per_sm = p.ctas_per_sm if ctas_per_sm is None else int(ctas_per_sm)
-    return max(1, min(int(n_tiles), int(sms) * per_sm))
+    of ``sms`` SMs (the wrappers ask the CUDA occupancy calculator, which
+    counts registers too), and never more than tiles."""
+    return max(1, min(int(n_tiles), int(sms) * int(ctas_per_sm)))
 
 
 def run(cta: int, n_tiles: int, n_ctas: int) -> tuple[int, int]:

@@ -150,11 +150,9 @@ def capture_frontend_mm_i16(block_i16: torch.Tensor, downsample: int,
 
 
 def _launch_head(block_i16: torch.Tensor, downsample: int, rotate: bool,
-                 interleaved: bool, what: str, grid: int | None = None,
-                 tile_plan: plan.TilePlan | None = None):
+                 interleaved: bool, what: str, grid: int | None = None):
     """Launch ``capture_head.cu`` on a CUDA tensor; returns the outputs.
-    ``grid`` forces the number of CTAs (default: one resident wave) and
-    ``tile_plan`` the tiles (default: ``plan.plan("capture_head", D)``)."""
+    ``grid`` forces the number of CTAs (default: one resident wave)."""
     kernels.require_cuda_int16(block_i16, what)
     d = int(downsample)
     if not 1 <= d <= _MAX_D:
@@ -167,7 +165,7 @@ def _launch_head(block_i16: torch.Tensor, downsample: int, rotate: bool,
     else:
         out_a = torch.empty(k, dtype=torch.float32, device=dev)
         out_b = torch.empty(k, dtype=torch.float32, device=dev)
-    p = tile_plan or plan.plan("capture_head", d)
+    p = plan.plan("capture_head", d)
     if grid is None:
         grid = kernels.grid(p, plan.head_tiles(p, k), dev)
     with torch.cuda.device(dev):

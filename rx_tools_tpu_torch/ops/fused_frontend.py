@@ -78,17 +78,14 @@ def _ticket(dev: torch.device, stream: int) -> torch.Tensor:
 
 def fused_capture_fm(prev_iq: torch.Tensor, blocks_flat: torch.Tensor,
                      downsample: int, k_per_block: int, rotate: bool = True,
-                     *, grid: int | None = None,
-                     tile_plan: plan.TilePlan | None = None):
+                     *, grid: int | None = None):
     """Launch the K2 kernel on a CUDA chunk of M blocks: one launch.
 
     Returns ``(d (K,), levels (M,), last (2,))``: the discriminator stream
     with std-atan2 seams, each block's RMS level (the block's tile
     partials summed in tile order by the last CTA to finish) and the
     chunk's last decimated sample.  ``grid`` forces the number of CTAs
-    (default: one resident wave; the results do not depend on it) and
-    ``tile_plan`` the tiles (default: ``plan.plan("fused_capture_fm",
-    D)``)."""
+    (default: one resident wave; the results do not depend on it)."""
     kernels.require_cuda_int16(blocks_flat, "fused_capture_fm")
     d = int(downsample)
     if not 1 <= d <= _MAX_D:
@@ -101,7 +98,7 @@ def fused_capture_fm(prev_iq: torch.Tensor, blocks_flat: torch.Tensor,
         raise ValueError("fused_capture_fm: prev_iq must be float32 (2,) "
                          "on the chunk's device")
     prev_iq = prev_iq.contiguous()
-    p = tile_plan or plan.plan("fused_capture_fm", d)
+    p = plan.plan("fused_capture_fm", d)
     tiles = m * plan.fused_tiles_per_block(p, k_per_block)
     if grid is None:
         grid = kernels.grid(p, tiles, dev)

@@ -147,20 +147,3 @@ def test_results_do_not_depend_on_grid(cuda, grids):
     assert torch.equal(d0, d1) and torch.equal(l0, l1) and torch.equal(p0, p1)
     assert all(torch.equal(a, b) for a, b in zip(*heads))
 
-
-@pytest.mark.parametrize("rows", [64, 128])
-def test_fused_tile_plans(cuda, rows):
-    """Other tile sizes than the plan's: d bit for bit, levels within the
-    reference's tolerance."""
-    from rx_tools_tpu_torch.kernels import plan
-    d, kpb, m = 14, 18432, 3
-    p = plan.plan("fused_capture_fm", d, rows, 2)
-    x = _x(cuda, 2 * d * kpb * m, seed=rows)
-    prev = torch.tensor([3.0, -2.0], device=cuda)
-    dg, lg, last = fused_frontend.fused_capture_fm(prev, x, d, kpb,
-                                                   tile_plan=p)
-    pp, dp, lp = fused_frontend.fused_capture_fm_plain(prev, x, d, kpb)
-    torch.cuda.synchronize()
-    assert torch.equal(dg, dp) and torch.equal(last, pp)
-    np.testing.assert_allclose(lg.cpu().numpy(), lp.cpu().numpy(),
-                               rtol=1e-5, atol=1e-3)

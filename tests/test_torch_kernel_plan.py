@@ -20,7 +20,9 @@ from rx_tools_tpu_torch.ops import frontend_mxu, fused_frontend
 
 DS = [1, 6, 14, 126, 200, 500, 1800]
 KS = [1, 33, 1001, 18432, 221184]
-SMS = [1, 7, 132]
+#: (SMs, resident CTAs per SM) of the grids the tests walk: the wrappers
+#: take both from the card (the SM count and the CUDA occupancy calculator)
+WAVES = [(1, 1), (7, 3), (132, 8), (132, 28)]
 MAX_D = {"capture_head": frontend_mxu._MAX_D,
          "fused_capture_fm": fused_frontend._MAX_D}
 
@@ -54,8 +56,8 @@ def test_head_covers_every_output_once(d, k):
     t = np.arange(n_tiles)
     starts = t * p.rows
     counts = np.minimum(p.rows, k - starts)
-    for sms in SMS:
-        runs = _runs(n_tiles, plan.grid(p, n_tiles, sms))
+    for sms, per_sm in WAVES:
+        runs = _runs(n_tiles, plan.grid(n_tiles, sms, per_sm))
         order = np.concatenate([np.arange(b, e) for b, e in runs])
         _covered(starts[order], counts[order], k)
 
@@ -77,8 +79,8 @@ def test_fused_tiles_cover_once_inside_blocks(d, m):
         assert np.array_equal(tiles[:, 1], counts[[0, tpb - 1, -1]])
         # never straddles a block
         assert np.array_equal(starts // kpb, (starts + counts - 1) // kpb)
-        for sms in SMS:
-            runs = _runs(n_tiles, plan.grid(p, n_tiles, sms))
+        for sms, per_sm in WAVES:
+            runs = _runs(n_tiles, plan.grid(n_tiles, sms, per_sm))
             order = np.concatenate([np.arange(b, e) for b, e in runs])
             _covered(starts[order], counts[order], m * kpb)
 
@@ -111,18 +113,55 @@ def test_ring_fits_at_max_d(kernel):
         assert p.rows == p.threads >= 32
 
 
+def _walk(p, kernel, k, m, n_ctas):
+    """What the kernel computes under a grid of ``n_ctas``: for every tile
+    of every CTA's run, in the order the CTAs walk them, its first output
+    sample, its length and the slot of its level partial.  The fused
+    kernel advances a (block, tile-in-block) cursor from its run's first
+    tile (``fused_capture_fm.cu``); the head counts tiles from it."""
+    kpb = k // m
+    if kernel == "capture_head":
+        n_tiles = plan.head_tiles(p, k)
+    else:
+        tpb = plan.fused_tiles_per_block(p, kpb)
+        n_tiles = m * tpb
+    out = []
+    for cta in range(n_ctas):
+        t0, t1 = plan.run(cta, n_tiles, n_ctas)
+        if kernel == "capture_head":
+            out += [(t * p.rows, min(p.rows, k - t * p.rows), None)
+                    for t in range(t0, t1)]
+            continue
+        blk, loc = divmod(t0, tpb)
+        for _ in range(t1 - t0):
+            out.append((blk * kpb + loc * p.rows,
+                        min(p.rows, kpb - loc * p.rows), blk * tpb + loc))
+            loc += 1
+            if loc == tpb:
+                blk, loc = blk + 1, 0
+    return n_tiles, out
+
+
 @pytest.mark.parametrize("kernel,d", [(k, d) for k in sorted(MAX_D)
                                       for d in DS if d <= MAX_D[k]])
 def test_tile_depends_on_d_alone(kernel, d):
+    """Two cards' waves (7 SMs x 3 CTAs and 132 x 8) walk the same tiles,
+    and the fused kernel's cursor puts each tile's level partial in the
+    slot of its tile index, so the last CTA sums every block's partials
+    in the same order on both."""
     p = plan.plan(kernel, d)
-    k = 221184
-    n_tiles = (plan.head_tiles(p, k) if kernel == "capture_head"
-               else 12 * plan.fused_tiles_per_block(p, k // 12))
-    grids = [plan.grid(p, n_tiles, sms) for sms in SMS]
-    assert grids == sorted(grids) and grids[-1] <= n_tiles
-    # the plan has no SM count in it: the same tiles on every card
-    plan.plan.cache_clear()
-    assert plan.plan(kernel, d) == p
+    m, k = 12, 221184
+    n_tiles = plan.head_tiles(p, k) if kernel == "capture_head" else (
+        m * plan.fused_tiles_per_block(p, k // m))
+    grids = [plan.grid(n_tiles, sms, per_sm)
+             for sms, per_sm in ((7, 3), (132, 8))]
+    assert grids[0] < grids[1] <= n_tiles
+    walks = [_walk(p, kernel, k, m, g)[1] for g in grids]
+    assert walks[0] == walks[1] and len(walks[0]) == n_tiles
+    if kernel == "fused_capture_fm":
+        assert [w[2] for w in walks[0]] == list(range(n_tiles))
+        assert all(w[:2] == plan.fused_tile(p, w[2], k // m)
+                   for w in walks[0])
 
 
 @pytest.mark.parametrize("kernel", sorted(MAX_D))
@@ -137,10 +176,26 @@ def test_kernel_limits_match_planner(kernel):
     assert '#include "head.cuh"' in text and '#include "ring.cuh"' in text
 
 
-@pytest.mark.parametrize("rows", [16, 48, 512])
-def test_fused_refuses_partial_warps_and_big_tiles(rows):
-    with pytest.raises(ValueError):
-        plan.plan("fused_capture_fm", 14, rows, 2)
+@pytest.mark.parametrize("d", [873, 1800, 5000])
+def test_fused_refuses_partial_warps_and_big_tiles(d):
+    """Past D = 872 a ring of two stages holds fewer than 32 rows of the
+    fused kernel's tiles: no whole warp, so no plan."""
+    with pytest.raises(ValueError, match="whole warps"):
+        plan.plan("fused_capture_fm", d)
+
+
+@pytest.mark.parametrize("d", [29045, 100000])
+def test_head_refuses_d_past_its_ring(d):
+    """Past D = 29044 two stages of one row each exceed 227 KB."""
+    assert plan.plan("capture_head", 29044).rows == 1
+    with pytest.raises(ValueError, match="no tile plan fits"):
+        plan.plan("capture_head", d)
+
+
+@pytest.mark.parametrize("n_tiles,sms,per_sm,want", [
+    (864, 132, 4, 528), (3456, 132, 28, 3456), (5, 132, 8, 5), (0, 7, 3, 1)])
+def test_grid_is_one_wave_capped_at_tiles(n_tiles, sms, per_sm, want):
+    assert plan.grid(n_tiles, sms, per_sm) == want
 
 
 def test_header_edit_makes_libraries_stale(tmp_path):
