@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's rx_fm WBFM chain on one CUDA card and check it.
+"""Drive the PyTorch port's rx_fm chains on one CUDA card and check them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA card and the CUDA toolkit (nvcc); it builds the kernels from
@@ -35,10 +35,26 @@ Phases, in order:
    the scan path at the flat engine's tolerance (rtol 1e-4, atol 0.02);
 5. the CLI: ``rx_fm -M wbfm`` on a synth source, 64 blocks — K1 must
    launch, the tone must come back;
-6. one JSON line listing every kernel entry point, then the result line.
+6. ``int_deemph`` (the integer tier's de-emphasis, a port-only kernel)
+   bit for bit against its host walk at the wbfm block (1368 samples),
+   timed;
+7. the CLI paths of the rest of rx_fm, each on the card and then on the
+   CPU from the same seeded synth (same PCM count, at most 1 LSB apart):
+   BASELINE config #2 (``-M nbfm -s 96k -r 48k -F 9 -l 10``, D = 16 in 4
+   fifth-order passes, 800 Hz tone back); config #3 (``-M am -s 24k -E dc
+   -E offset``, D = 42, K1 launched with ``rotate=False``, 600 Hz back) and
+   again with ``-E rdc``; ``-E hq`` at the wbfm preset; ``--int-audio`` at
+   the wbfm preset (card bytes identical to CPU bytes, ``int_deemph``
+   launched); ``-b 1`` against the chunked runner (identical bytes); an
+   interrupted run with ``--checkpoint`` resumed with ``--resume``
+   (identical to an uninterrupted run; the card's checkpoint loads on the
+   CPU); scanning two ``-f`` with ``-l``, the first silent (a hop counted,
+   audio emitted);
+8. one JSON line listing every kernel entry point, then the result line.
 """
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -66,12 +82,12 @@ def card_line():
     return out[0].strip()
 
 
-def tone_hz(pcm):
-    a = pcm[2000:].astype("float64")
+def tone_hz(pcm, rate=AUDIO_RATE, skip=2000):
+    a = pcm[skip:].astype("float64")
     a -= a.mean()
     import numpy as np
     sp = np.abs(np.fft.rfft(a * np.hanning(a.size))) ** 2
-    return float(np.fft.rfftfreq(a.size, 1 / AUDIO_RATE)[np.argmax(sp)])
+    return float(np.fft.rfftfreq(a.size, 1 / rate)[np.argmax(sp)])
 
 
 def bound(bytes_moved, ops):
@@ -106,7 +122,8 @@ def main():
     from rx_tools_tpu_torch.kernels.timing import time_ms
     from rx_tools_tpu_torch.models import fmchain
     from rx_tools_tpu_torch.ops import frontend_mxu, fused_frontend
-    from rx_tools_tpu_torch.ops import pallas_frontend
+    from rx_tools_tpu_torch.ops import intaudio, pallas_frontend
+    from rx_tools_tpu_torch.stream import checkpoint
     from rx_tools_tpu_torch.stream.chunked import ChunkedFmRunner
     from rx_tools_tpu_torch.stream.scan import scan_fm_blocks
 
@@ -133,7 +150,8 @@ def main():
     counters = {"capture_frontend_mm_pallas": k1,
                 "capture_frontend_pallas": k3,
                 "capture_frontend_mm_pallas2": k4,
-                "fused_capture_fm": k2}
+                "fused_capture_fm": k2,
+                "int_deemph": intaudio.deemph_int}
 
     def reset_counts():
         for fn in counters.values():
@@ -419,14 +437,200 @@ def main():
     if abs(hz - 1000.0) > 10:
         fail(f"tone not recovered by the CLI ({hz} Hz)")
 
-    # ---- phase 6: the record ---------------------------------------------
-    path_counts = dict(main_counts)
-    path_counts["fused_capture_fm"] = fused_counts["fused_capture_fm"]
+    # ---- phase 6: int_deemph against its plain version --------------------
+    kpb_int = 8208 // 6                  # the wbfm block after the boxcar
+    rng = np.random.default_rng(11)
+    dargs = [(torch.tensor(int(a0), dtype=torch.int64, device=dev),
+              torch.as_tensor(rng.integers(-32768, 32767, kpb_int),
+                              device=dev), 13)
+             for a0 in rng.integers(-40000, 40000, 8)]
+    for a, x, da in dargs[:3] + [(dargs[0][0], dargs[0][1][:1], 8)]:
+        ga, gy = intaudio.deemph_int(a, x, da)
+        pa, py = intaudio.deemph_int_plain(a.cpu(), x.cpu(), da)
+        torch.cuda.synchronize()
+        if int(ga) != int(pa) or not torch.equal(gy.cpu(), py):
+            fail(f"int_deemph differs from its plain version (n {x.numel()},"
+                 f" a {da})")
+    host = [(a.cpu(), x.cpu(), da) for a, x, da in dargs]
+    t = time.perf_counter()
+    for a, x, da in host:
+        intaudio.deemph_int_plain(a, x, da)
+    deemph = dict(
+        fn=intaudio.deemph_int, err=0.0, ms=time_ms(intaudio.deemph_int,
+                                                    dargs),
+        # the plain version is a walk on the host: its wall time
+        plain_ms=(time.perf_counter() - t) * 1e3 / len(dargs),
+        source="rx_tools_tpu_torch/kernels/csrc/int_deemph.cu",
+        replaces="none (port-only; rx_tools_tpu/ops/intaudio.py:158 "
+                 "deemph_int is a lax.scan)")
+    deemph["bound_ms"], deemph["bound_by"] = bound(16 * kpb_int + 16,
+                                                   6 * kpb_int)
+    print(json.dumps({"kernel": "int_deemph", "shape": f"{kpb_int} int64",
+                      "ms": deemph["ms"], "bound_ms": deemph["bound_ms"],
+                      "plain_ms": deemph["plain_ms"],
+                      "bitwise": True}))
+
+    # ---- phase 7: the CLI paths of the rest of rx_fm ---------------------
+    # launches on every path, each counted from 0 just before it ran
+    path_counts = {name: [main_counts[name], fused_counts[name],
+                          cli_counts[name]] for name in counters}
+
+    def cli(args, out, cpu=False):
+        """``rx_fm`` on the card (or the CPU): (pcm, launches)."""
+        old = os.environ.get("RX_PLATFORM")
+        if cpu:
+            os.environ["RX_PLATFORM"] = "cpu"
+        try:
+            reset_counts()
+            rc = rx_fm.main(args + [str(out)])
+            counts = {k: f.launches for k, f in counters.items()}
+        finally:
+            if old is None:
+                os.environ.pop("RX_PLATFORM", None)
+            else:
+                os.environ["RX_PLATFORM"] = old
+        if rc != 0:
+            fail(f"rx_fm {' '.join(args)} exited {rc}")
+        if not cpu:
+            for k, v in counts.items():
+                path_counts[k].append(v)
+        return np.fromfile(out, np.int16), counts
+
+    def card_vs_cpu(what, args, tmp, exact=False):
+        gpu, counts = cli(args, Path(tmp) / "gpu.raw")
+        cpu, _ = cli(args, Path(tmp) / "cpu.raw", cpu=True)
+        if gpu.size != cpu.size or gpu.size == 0:
+            fail(f"{what}: card {gpu.size} vs CPU {cpu.size} PCM samples")
+        diff = int(np.abs(gpu.astype(int) - cpu.astype(int)).max())
+        if diff > (0 if exact else 1):
+            fail(f"{what}: card and CPU PCM differ by {diff} LSB")
+        print(f"{what}: {gpu.size} PCM samples, card vs CPU max |diff| "
+              f"{diff} LSB, launches {counts}")
+        return gpu, counts
+
+    wbfm_synth = ("synth=fm,audio=1k,dev=50k,amp=0.8,noise=0.001,seed=3,"
+                  "carrier=100.3M")
+    with tempfile.TemporaryDirectory() as tmp:
+        # BASELINE config #2: NBFM, squelch, fifth-order cascade + droop,
+        # rational resampler to 48k (stateful head: plain torch ops)
+        pcm, _ = card_vs_cpu("config #2 (nbfm -s 96k -r 48k -F 9 -l 10)", [
+            "-f", "100M", "-M", "nbfm", "-s", "96k", "-r", "48k", "-F", "9",
+            "-l", "10", "-d", "synth=fm,audio=800,dev=5k,amp=0.8,"
+            "noise=0.001,seed=5,carrier=100M", "--blocks", "64"], tmp)
+        hz = tone_hz(pcm, 48000, 4000)
+        if abs(hz - 800.0) > 10:
+            fail(f"config #2: tone not recovered ({hz} Hz)")
+        print(f"  config #2 tone {hz:.1f} Hz")
+
+        # BASELINE config #3: AM, audio DC block, offset tuning (K1 with
+        # rotate=False), then with the raw DC block (-E rdc)
+        rotations = []
+        launch_head = frontend_mxu._launch_head
+
+        def recording(block, d, rotate, *a, **kw):
+            rotations.append(bool(rotate))
+            return launch_head(block, d, rotate, *a, **kw)
+
+        # the station 2 kHz off the tuned frequency: the envelope does not
+        # care, and -E rdc then removes the tuner's DC, not the carrier
+        am = ["-f", "100M", "-M", "am", "-s", "24k", "-E", "dc", "-E",
+              "offset", "-d", "synth=am,audio=600,amp=0.5,noise=0.001,"
+              "seed=6,carrier=100.002M", "--blocks", "64"]
+        frontend_mxu._launch_head = recording
+        try:
+            pcm, counts = card_vs_cpu("config #3 (am -s 24k -E dc -E offset)",
+                                      am, tmp)
+        finally:
+            frontend_mxu._launch_head = launch_head
+        if counts["capture_frontend_mm_pallas"] <= 0 or not rotations \
+                or any(rotations):
+            fail(f"config #3 did not launch K1 with rotate=False "
+                 f"({counts}, rotate flags {set(rotations)})")
+        print(f"  config #3: {len(rotations)} K1 launches, all with "
+              "rotate=False")
+        for what, p in (("config #3", pcm), ("config #3 -E rdc", card_vs_cpu(
+                "config #3 -E rdc", am + ["-E", "rdc"], tmp)[0])):
+            hz = tone_hz(p, 24000, 2000)
+            if abs(hz - 600.0) > 10:
+                fail(f"{what}: tone not recovered ({hz} Hz)")
+            print(f"  {what} tone {hz:.1f} Hz")
+
+        wbfm = ["-f", "100.3M", "-M", "wbfm", "-d", wbfm_synth,
+                "--blocks", "64"]
+        pcm, _ = card_vs_cpu("-E hq (wbfm)", wbfm + ["-E", "hq"], tmp)
+        print(f"  -E hq tone {tone_hz(pcm):.1f} Hz")
+        _, counts = card_vs_cpu("--int-audio (wbfm)", wbfm + ["--int-audio"],
+                                tmp, exact=True)
+        if counts["int_deemph"] <= 0:
+            fail("--int-audio did not launch int_deemph")
+
+        # -b 1 against the chunked runner, and checkpoint/resume, at -s 24k
+        # (no de-emphasis, no resampler: every engine gives the same bytes)
+        fm24 = ["-f", "100M", "-s", "24k", "-d", "synth=fm,audio=1k,dev=9k,"
+                "amp=0.8,noise=0.01,carrier=100M,seed=7"]
+        chunked, _ = cli(fm24 + ["--blocks", "48"], Path(tmp) / "a.raw")
+        per_block, counts = cli(fm24 + ["-b", "1", "--blocks", "48"],
+                                Path(tmp) / "b.raw")
+        # one K1 launch a block, plus the runner's warmup block
+        if counts["capture_frontend_mm_pallas"] < 48:
+            fail(f"-b 1 did not launch K1 once a block ({counts})")
+        if chunked.size != per_block.size or chunked.size == 0:
+            fail(f"-b 1 gave {per_block.size} PCM samples, the chunked "
+                 f"runner {chunked.size}")
+        if not np.array_equal(chunked, per_block):
+            fail("-b 1 differs from the chunked runner by "
+                 f"{np.abs(chunked.astype(int) - per_block).max()} LSB")
+        print(f"-b 1 vs chunked runner on the card: identical "
+              f"({chunked.size} PCM samples), launches {counts}")
+        ck, out = Path(tmp) / "st.npz", Path(tmp) / "o.wav"
+        ref_wav = Path(tmp) / "ref.wav"
+        cli(fm24 + ["-E", "wav", "--blocks", "48"], ref_wav)
+        cli(fm24 + ["-E", "wav", "--checkpoint", str(ck), "--blocks", "20"],
+            out)
+        cli(fm24 + ["-E", "wav", "--resume", str(ck), "--blocks", "48"], out)
+        if out.read_bytes() != ref_wav.read_bytes():
+            fail("interrupted + resumed run differs from an uninterrupted one")
+        cfg24 = fmchain.plan_capture(fmchain.FmConfig(), 100e6)[0]
+        on_cpu, meta = checkpoint.load_checkpoint(
+            str(ck), fmchain.init_state(cfg24, "cpu"))
+        leaves = checkpoint.tree_leaves(on_cpu)
+        if meta["blocks"] != 48 or not all(
+                t.device.type == "cpu" for t in leaves):
+            fail(f"the card's checkpoint did not load on the CPU ({meta})")
+        print(f"checkpoint: interrupted at 20 blocks + resumed = the "
+              f"uninterrupted bytes; the card's checkpoint ({len(leaves)} "
+              f"leaves, {meta['blocks']} blocks) loads on the CPU")
+
+        # scanning: the first frequency is silent, so the scanner must hop
+        from rx_tools_tpu_torch.iq import sources
+        tunes = []
+        set_freq = sources.SynthSource.set_frequency
+
+        def counting(self, f):
+            tunes.append(f)
+            return set_freq(self, f)
+
+        sources.SynthSource.set_frequency = counting
+        try:
+            pcm, counts = cli(["-f", "102.3M", "-f", "100.3M", "-M", "wbfm",
+                               "-l", "20", "-d", wbfm_synth, "--blocks",
+                               "64"], Path(tmp) / "scan.raw")
+        finally:
+            sources.SynthSource.set_frequency = set_freq
+        hops = len(tunes) - 1
+        hz = tone_hz(pcm) if pcm.size > 4000 else 0.0
+        print(f"scanning: {hops} hop(s), {pcm.size} PCM samples, tone "
+              f"{hz:.1f} Hz, launches {counts}")
+        if hops < 1 or pcm.size == 0 or abs(hz - 1000.0) > 10:
+            fail("scanning did not hop to the station and emit its audio")
+
+    # ---- phase 8: the record ---------------------------------------------
+    kern["int_deemph"] = deemph
     lines = []
     for name, k in kern.items():
         lines.append({"name": name, "route": "cuda", "source": k["source"],
                       "replaces": k["replaces"],
-                      "launches": path_counts[name],
+                      "launches": sum(path_counts[name]),
                       "max_abs_err": k["err"], "ms": k["ms"],
                       "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                       "bound_by": k["bound_by"],

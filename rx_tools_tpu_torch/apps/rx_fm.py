@@ -3,13 +3,17 @@
 Counterpart of :mod:`rx_tools_tpu.apps.rx_fm`, with the same flags
 (``src/rtl_fm.c:195-260``, getopt loop ``:1224-1365``), the ``wbfm`` macro
 preset (``rtl_fm.c:1331-1341``), signed 16-bit PCM on stdout (a WAV header
-with ``-E wav``) and every log line on stderr.  The chain runs through the
-chunked runner on the CUDA device (``RX_PLATFORM=cpu`` runs the plain
-PyTorch versions on the CPU).
+with ``-E wav``) and every log line on stderr.  The chain runs on the CUDA
+device (``RX_PLATFORM=cpu`` runs the plain PyTorch versions on the CPU):
+through the chunked runner, or the per-block ``StreamRunner`` with ``-b
+1``; ``--int-audio`` runs the bit-exact integer tier block by block.
+Squelch-driven scanning over several ``-f`` retunes the source between
+blocks and mutes ``BUFFER_DUMP`` samples after each retune
+(``rtl_fm.c:839-843``); ``--checkpoint``/``--resume`` snapshot and restore
+the carried state in the reference package's format.
 
-Not yet ported: each of these flags logs one line naming it and exits 1 —
-``--int-audio``, ``-E shard``, ``--checkpoint``/``--resume``, ``-b 1``,
-``-F``, ``-E hq``, ``-E rdc``, and scanning over more than one ``-f``.
+Not yet ported: ``-E shard`` (offline time sharding over several devices)
+logs one line and exits 1; it waits for the port's ``parallel/`` slice.
 
 Run: ``python -m rx_tools_tpu_torch.apps.rx_fm -f 100.3M -M wbfm
 -d synth=fm,audio=1k out.raw``.
@@ -18,6 +22,7 @@ Run: ``python -m rx_tools_tpu_torch.apps.rx_fm -f 100.3M -M wbfm
 from __future__ import annotations
 
 import getopt
+import os
 import sys
 
 import numpy as np
@@ -31,6 +36,7 @@ from rx_tools_tpu_torch.utils.logging import log
 from rx_tools_tpu_torch.utils.units import atofs
 from rx_tools_tpu_torch.utils.wav import write_wav_header
 
+BUFFER_DUMP = 4096
 FREQUENCIES_LIMIT = 1000
 
 USAGE = """rx_fm (rx_tools_tpu_torch), a simple narrow band FM demodulator
@@ -119,6 +125,59 @@ def parse_freq_args(freq_args: list[str]) -> list[float]:
         if len(freqs) > FREQUENCIES_LIMIT:
             raise ValueError(f"too many frequencies (max {FREQUENCIES_LIMIT})")
     return freqs
+
+
+def _iter_pieces(src, elems: int):
+    """Yield the capture as int16 arrays of exactly ``elems`` elements
+    (plus one final short piece), reading the source incrementally."""
+    parts, total = [], 0
+    while True:
+        n, buf = src.read_stream(1 << 18)
+        if n == 0:
+            break
+        if n < 0:
+            sys.stderr.write("O")
+            sys.stderr.flush()
+            continue
+        parts.append(np.asarray(buf[: 2 * n]))
+        total += 2 * n
+        while total >= elems:
+            iq = parts[0] if len(parts) == 1 else np.concatenate(parts)
+            yield iq[:elems]
+            rest = iq[elems:]
+            parts, total = ([rest] if rest.size else []), int(rest.size)
+    if total:
+        yield parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+
+def _run_int_audio(cfg, src, out, device, max_blocks: int = 0) -> None:
+    """``--int-audio``: the bit-exact integer tier (``models/fmint.py``),
+    block by block: device integer demod, host float64 seam patch, device
+    integer audio post (the ``int_deemph`` kernel on the card)."""
+    from rx_tools_tpu_torch.models import fmint
+    from rx_tools_tpu_torch.stream.scan import stack_blocks
+
+    bs = fmchain.block_samples(cfg)
+    st = fmint.init_state(device)
+    done = 0
+    log("Bit-exact integer audio tier active (block %d).", bs)
+    for iq in _iter_pieces(src, 8 * 2 * bs):
+        blocks = stack_blocks(iq, bs)
+        for i in range(blocks.shape[0]):
+            st, audio = fmint.int_chain_block(cfg, st, blocks[i])
+            out.write(audio.tobytes())
+            done += 1
+            if max_blocks and done >= max_blocks:
+                return
+
+
+def _close(src, out) -> None:
+    src.deactivate()
+    src.close()
+    if out is not sys.stdout.buffer:
+        out.close()
+    else:
+        out.flush()
 
 
 def main(argv=None) -> int:
@@ -253,19 +312,15 @@ def main(argv=None) -> int:
         # the station center so the DC spur lands between channels
         freqs = [f + 16000 for f in freqs]
 
-    # flags whose paths are not yet ported: one line naming the flag, exit 1
-    unported = [flag for flag, on in (
-        ("--int-audio", int_audio),
-        ("-E shard", "shard" in enables),
-        ("--checkpoint/--resume", checkpoint_path or resume_path
-         or checkpoint_every),
-        ("-b 1", chunk_blocks == 1),
-        ("-F", fir_size >= 0),
-        ("-E hq", "hq" in enables),
-        ("-E rdc", "rdc" in enables),
-        ("scanning over several -f", len(freqs) > 1)) if on]
-    if unported:
-        log("rx_fm: %s is not yet ported to rx_tools_tpu_torch.", unported[0])
+    if resume_path and checkpoint_path is None:
+        checkpoint_path = resume_path   # keep snapshotting to the same file
+    if checkpoint_path and (len(freqs) > 1 or "shard" in enables):
+        log("--checkpoint/--resume support single-frequency streaming runs "
+            "only (no scanning, no -E shard).")
+        return 1
+    if "shard" in enables:
+        log("rx_fm: -E shard is not yet ported to rx_tools_tpu_torch (it "
+            "waits for the parallel/ slice).")
         return 1
     device = resolve_device()
 
@@ -288,9 +343,15 @@ def main(argv=None) -> int:
         mode=mode, rate_in=rate_demod, rate_out=rate_out,
         rate_out2=rate_resample if rate_resample > 0 else -1,
         downsample=1,
+        downsample_passes=1 if 0 <= fir_size <= 9 else 0,
+        comp_fir_size=fir_size if fir_size == 9 else 0,
+        fir_quality=(fir_size if fir_size > 9 else
+                     (64 if "hq" in enables else 0)),
+        resample_quality=32 if "hq" in enables else 0,
         custom_atan=ops.disc_mode(atan_name),
         post_downsample=post_downsample, deemph_a=deemph_a,
         dc_block_audio=("dc" in enables or "adc" in enables),
+        dc_block_raw="rdc" in enables,
         squelch_level=squelch_level,
         squelch_zero="zero" in enables,
         conseq_squelch=abs(squelch_delay) if squelch_delay else 10,
@@ -334,10 +395,56 @@ def main(argv=None) -> int:
         log("Output at %u Hz.", cfg.rate_in // cfg.post_downsample)
         common.verbose_set_frequency(src, capture_freq0)
 
-
-    out = common.open_output(args[0] if args else None)
+    # on resume with a file output, reopen without truncating: the stream
+    # rewinds to the snapshot point below, so the result is bit-identical
+    # to an uninterrupted run even after a hard kill mid-write
+    out_name = args[0] if args else None
+    resuming_file = (resume_path is not None and out_name not in (None, "-")
+                     and os.path.exists(out_name)
+                     and os.path.exists(resume_path))
+    out = (open(out_name, "r+b") if resuming_file
+           else common.open_output(out_name))
+    header_bytes = 0
     if "wav" in enables:
-        write_wav_header(out, cfg.audio_rate(), stereo=(mode == "raw"))
+        header_bytes = 44
+        if not resuming_file:      # header already present when resuming
+            write_wav_header(out, cfg.audio_rate(), stereo=(mode == "raw"))
+
+    # --- bit-exact integer audio tier (--int-audio) -----------------------
+    if int_audio:
+        from rx_tools_tpu_torch.models import fmint
+        if len(freqs) > 1:
+            log("--int-audio is a single-frequency offline tier "
+                "(no scanning, no -E shard).")
+            return 1
+        if not fmint.supports(cfg):
+            log("--int-audio covers fm (-A fast/lut/ale), am, usb, lsb on "
+                "the boxcar path without squelch/raw-DC; adjust flags or "
+                "drop --int-audio for the float plane.")
+            return 1
+        with common.suppress_stdout():
+            src.activate()
+        try:
+            _run_int_audio(cfg, src, out, device, max_blocks)
+        finally:
+            _close(src, out)
+        return 0
+
+    # --- controller state (freq scanning) --------------------------------
+    freq_idx = [0]
+
+    def capture_freq(i: int) -> float:
+        return fmchain.plan_capture(cfg, freqs[i], edge)[1]
+
+    def on_squelch() -> bool:
+        if len(freqs) <= 1:
+            if squelch_delay < 0:
+                runner.stop()       # -t negative: exit on squelch
+            return False
+        freq_idx[0] = (freq_idx[0] + 1) % len(freqs)
+        src.set_frequency(capture_freq(freq_idx[0]))
+        src.read_stream(BUFFER_DUMP)   # post-retune mute (rtl_fm.c:1047)
+        return True
 
     # --- level meter (-L, rtl_fm.c:94-99,792-807) --------------------------
     # one sample per demod pass; the FIRST pass prints immediately
@@ -365,25 +472,82 @@ def main(argv=None) -> int:
         pcm = fmchain.audio_to_int16(audio)
         out.write(pcm.tobytes())
 
-    runner = ChunkedFmRunner(cfg, src, sink, chunk=chunk_blocks,
-                             exit_on_squelch=squelch_delay < 0,
-                             device=device)
+    if chunk_blocks == 1:
+        # -b 1: per-block StreamRunner — lowest latency; source reads
+        # overlap device compute (stream/pipeline.py)
+        import functools
+        from rx_tools_tpu_torch.stream.pipeline import StreamRunner
+        runner = StreamRunner(
+            functools.partial(fmchain.fm_chain_step, cfg),
+            fmchain.init_state(cfg, device), src, fmchain.block_samples(cfg),
+            sink,
+            on_squelch=on_squelch if len(freqs) > 1 else None,
+            conseq_squelch=cfg.conseq_squelch,
+            exit_on_squelch=squelch_delay < 0,
+            squelch_zero=cfg.squelch_zero,
+            checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every)
+        runner.squelch_level = squelch_level
+    else:
+        runner = ChunkedFmRunner(
+            cfg, src, sink, chunk=chunk_blocks,
+            on_squelch=on_squelch if len(freqs) > 1 else None,
+            exit_on_squelch=squelch_delay < 0, device=device,
+            checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every)
     runner.warmup()
+
+    resume_meta = None
+    if resume_path:
+        if not os.path.exists(resume_path):
+            log("resume: no checkpoint at %s yet — starting fresh.",
+                resume_path)
+        else:
+            from rx_tools_tpu_torch.stream.checkpoint import read_meta
+            peek = read_meta(resume_path)   # validate before loading state
+            if int(peek.get("block_size", -1)) != runner.block_size:
+                log("resume: checkpoint block size %s != current plan %d "
+                    "(different flags?)",
+                    peek.get("block_size"), runner.block_size)
+                return 1
+            try:
+                resume_meta = runner.restore(resume_path)
+            except (ValueError, KeyError) as e:
+                log("resume: checkpoint does not match this chain (%s)",
+                    str(e))
+                return 1
+
     common.install_sigint(lambda *a: runner.stop())
 
     # stdout stays suppressed through activation (driver chatter must not
     # reach the data plane; rtl_fm.c:880, convenience.c:447-466)
     with common.suppress_stdout():
         src.activate()
+    if resume_meta is not None:
+        if resuming_file:
+            # rewind the output to the snapshot point (drops any audio
+            # written after the last checkpoint before the kill)
+            out.seek(header_bytes + 2 * int(resume_meta["samples_out"]))
+            out.truncate()
+        # skip the consumed input in the runner's own read size, so a
+        # source whose stream depends on how it is read (the synth's noise
+        # draws and phase sums) repeats the samples of one pass
+        remaining = int(resume_meta["samples_in"])
+        while remaining > 0:
+            n, _ = src.read_stream(min(runner.block_size, remaining))
+            if n < 0:
+                continue
+            if n == 0:
+                log("resume: source ended during skip-ahead.")
+                break
+            remaining -= n
+        log("Resumed at block %d (%d samples in, %d out).",
+            int(resume_meta["blocks"]), int(resume_meta["samples_in"]),
+            int(resume_meta["samples_out"]))
     try:
         stats = runner.run(max_blocks=max_blocks)
     finally:
-        src.deactivate()
-        src.close()
-        if out is not sys.stdout.buffer:
-            out.close()
-        else:
-            out.flush()
+        _close(src, out)
     if verbosity:
         log("Processed %d blocks (%d samples in, %d out, %.1fx realtime).",
             stats.blocks, stats.samples_in, stats.samples_out,

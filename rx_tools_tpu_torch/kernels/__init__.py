@@ -2,7 +2,8 @@
 
 The wrappers that launch them live in the modules of their counterparts
 (``ops/frontend_mxu.py`` for the capture head, ``ops/fused_frontend.py`` for
-the fused front); this package builds the libraries (:mod:`.build`),
+the fused front, ``ops/intaudio.py`` for the integer de-emphasis); this
+package builds the libraries (:mod:`.build`),
 declares the C signatures, plans the kernels' tiles (:mod:`.plan`) and
 sizes their grid to one resident wave (:func:`grid`).  Every C entry point
 returns ``cudaGetLastError()`` after its launch; :func:`check` raises on
@@ -35,6 +36,10 @@ _SIGNATURES = {
         "rx_fused_capture_fm": [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I,
                                 _F, _I, _I, _I, _I, _I, _P],
         "rx_fused_capture_fm_ctas_per_sm": [_I, _I, _I],
+    },
+    "int_deemph": {
+        # x, y, avg, n, deemph_a, stream
+        "rx_int_deemph": [_P, _P, _P, _LL, _LL, _P],
     },
 }
 

@@ -36,6 +36,7 @@ SOURCES = {
     # no multiply-add contraction: the output is held to the plain
     # version's elementwise arithmetic
     "fused_capture_fm": ("fused_capture_fm.cu", ["--fmad=false"]),
+    "int_deemph": ("int_deemph.cu", []),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -12,9 +12,12 @@ over torch tensors on the state's device; every reference state field
 lives in the :class:`FmState` NamedTuple (field for field the reference
 package's, so states carry across, ``models/convert.py``).
 
-Numerics: float32 in the reference's +/-128 8-bit range.  Heads off the
-boxcar path (raw DC block, fifth-order cascade, polyphase FIR) and the
-sinc resampler (``-E hq``) are not yet ported and raise.
+Numerics: float32 in the reference's +/-128 8-bit range.  The boxcar head
+runs in the capture-head kernel; the stateful heads (raw DC block ``-E
+rdc``, fifth-order cascade and droop FIR ``-F 0|9``, polyphase FIR ``-F
+>9``/``-E hq``, and the unaligned boxcar behind a raw DC block) and the
+sinc resampler (``-E hq``) are plain torch ops, as they are plain XLA in
+the reference package.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from rx_tools_tpu_torch import ops
 from rx_tools_tpu_torch.device import resolve_device
 from rx_tools_tpu_torch.ops.fused_frontend import (fused_capture_fm_demod,
                                                    fused_eligible)
+from rx_tools_tpu_torch.ops.numeric import device_const
 
 MODES = ("fm", "am", "usb", "lsb", "raw")
 
@@ -40,6 +44,10 @@ MAXIMUM_OVERSAMPLE = 16
 MAXIMUM_BUF_LENGTH = MAXIMUM_OVERSAMPLE * DEFAULT_BUF_LENGTH
 LCM_POST = [1, 1, 1, 3, 1, 5, 3, 7, 1, 9, 5, 11, 3, 13, 7, 15, 1]
 FREQUENCIES_LIMIT = 1000
+
+#: the capture rescale of the stateful heads, one float32 multiply
+#: (``rtlsdr_callback``, rtl_fm.c:845-848)
+_RESCALE = float(np.float32(128.0 / 32767.0))
 
 
 @dataclass(frozen=True)
@@ -141,21 +149,57 @@ def plan_capture(cfg: FmConfig, freq: float, edge: int = 0):
 
 
 def check_supported(cfg: FmConfig) -> None:
-    """Raise for the parts of the chain this port does not cover yet."""
+    """Raise for a mode the chain does not know."""
     if cfg.mode not in MODES:
         raise ValueError(cfg.mode)
-    for on, what in ((cfg.dc_block_raw, "raw DC block (-E rdc)"),
-                     (cfg.downsample_passes, "fifth-order cascade (-F 0|9)"),
-                     (cfg.fir_quality > 9, "polyphase FIR head (-F >9, -E hq)"),
-                     (cfg.resample_quality > 0, "sinc resampler (-E hq)")):
-        if on:
-            raise NotImplementedError(f"{what} is not yet ported")
+
+
+def boxcar_head(cfg: FmConfig) -> bool:
+    """True when the capture head is the stateless aligned boxcar (the
+    capture-head kernel); otherwise :func:`stateful_head` runs."""
+    return (not cfg.dc_block_raw and not cfg.downsample_passes
+            and cfg.fir_quality <= 9)
+
+
+def rescale_cs16(block: torch.Tensor) -> torch.Tensor:
+    """(2N,) int16 -> (N, 2) float32 in the reference's 8-bit range."""
+    return block.to(torch.float32).reshape(-1, 2) * _RESCALE
+
+
+def stateful_head(cfg: FmConfig, state: FmState, block: torch.Tensor):
+    """The capture head off the boxcar path (fmchain.py's non-boxcar
+    branch of the reference, rtl_fm.c:763-779 and :845-863): rescale, raw
+    DC block, fs/4 derotate, then the fifth-order cascade (+ droop FIR),
+    the polyphase FIR or the aligned boxcar.  Returns the state with the
+    head's carries updated and the planar ``(zi, zq)``."""
+    dc_iq, fifth, droop, polyfir = (state.dc_iq, state.fifth, state.droop,
+                                    state.polyfir)
+    x = rescale_cs16(block)
+    if cfg.dc_block_raw:
+        dc_iq, x = ops.dc_block_raw(dc_iq, x)
+    if not cfg.offset_tuning:
+        x = ops.rotate_fs4(x)
+    if cfg.downsample_passes:
+        fifth, x = ops.fifth_order_cascade(fifth, x, cfg.downsample_passes)
+        if cfg.comp_fir_size == 9:
+            droop, x = ops.droop_fir(droop, x, cfg.downsample_passes)
+    elif cfg.fir_quality > 9:
+        taps = device_const(ops.design_lowpass, cfg.fir_quality,
+                            1.0 / cfg.downsample, device=x.device)
+        polyfir, x = ops.fir_decimate(polyfir, x, taps, cfg.downsample)
+    else:
+        # aligned boxcar: block_samples guarantees divisibility
+        x = x.reshape(-1, cfg.downsample, 2).sum(dim=1)
+    state = state._replace(dc_iq=dc_iq, fifth=fifth, droop=droop,
+                           polyfir=polyfir)
+    return state, x[:, 0].contiguous(), x[:, 1].contiguous()
 
 
 def as_block(block, device: torch.device) -> torch.Tensor:
     """An int16 block (numpy or tensor) as a tensor on ``device``."""
     if isinstance(block, np.ndarray):
-        block = torch.from_numpy(np.ascontiguousarray(block))
+        # a read-only array (a file source's buffer) is copied once
+        block = torch.from_numpy(np.require(block, requirements=("C", "W")))
     return block.to(device, non_blocking=True)
 
 
@@ -165,14 +209,14 @@ def _demod(cfg: FmConfig, prev_iq, zi, zq, seam_stride=None):
     if cfg.mode == "fm":
         return ops.fm_discriminate_planar(prev_iq, zi, zq, cfg.custom_atan,
                                           seam_stride=seam_stride)
-    scale = float(cfg.output_scale)
+    x = torch.stack([zi, zq], dim=-1)
     if cfg.mode == "am":
-        return prev_iq, torch.sqrt(zi * zi + zq * zq) * scale
+        return prev_iq, ops.am_demod(x, cfg.output_scale)
     if cfg.mode == "usb":
-        return prev_iq, (zi + zq) * scale
+        return prev_iq, ops.usb_demod(x, cfg.output_scale)
     if cfg.mode == "lsb":
-        return prev_iq, (zi - zq) * scale
-    return prev_iq, torch.stack([zi, zq], dim=-1).reshape(-1)     # raw
+        return prev_iq, ops.lsb_demod(x, cfg.output_scale)
+    return prev_iq, x.reshape(-1)                                 # raw
 
 
 def fm_chain_step(cfg: FmConfig, state: FmState, block,
@@ -198,9 +242,13 @@ def fm_chain_step(cfg: FmConfig, state: FmState, block,
             state.prev_iq, block, cfg.downsample, k_out, rotate=rotate)
         return _fm_post(cfg, state, audio, levels[0], prev_iq,
                         state.squelch_hits)
-    # the boxcar chain head — rescale (rtl_fm.c:845-848), fs/4 derotate
-    # (rtl_fm.c:309-327), decimate (rtl_fm.c:351-371) — planar output
-    zi, zq = ops.capture_frontend_planar(block, cfg.downsample, rotate)
+    if boxcar_head(cfg):
+        # the boxcar chain head — rescale (rtl_fm.c:845-848), fs/4
+        # derotate (rtl_fm.c:309-327), decimate (rtl_fm.c:351-371) — in
+        # the capture-head kernel, planar output
+        zi, zq = ops.capture_frontend_planar(block, cfg.downsample, rotate)
+    else:
+        state, zi, zq = stateful_head(cfg, state, block)
 
     # --- squelch (rtl_fm.c:781-790) ---
     level = ops.rms_level_planar(zi, zq)
@@ -236,15 +284,20 @@ def _fm_post(cfg: FmConfig, state: FmState, audio, level, prev_iq,
     dc_avg = state.dc_avg
     if cfg.dc_block_audio:
         dc_avg, audio = ops.dc_block_audio(dc_avg, audio)
-    resamp = state.resamp
-    if cfg.rate_out2 > 0:
+    resamp, sincresamp = state.resamp, state.sincresamp
+    if cfg.rate_out2 > 0 and cfg.resample_quality > 0:
+        sincresamp, audio, n_valid = ops.resample_sinc(
+            sincresamp, audio, cfg.rate_out, cfg.rate_out2,
+            taps=cfg.resample_quality)
+    elif cfg.rate_out2 > 0:
         resamp, audio, n_valid = ops.resample_rational(
             resamp, audio, cfg.rate_out, cfg.rate_out2)
     else:
         n_valid = _count(audio)
     new_state = state._replace(prev_iq=prev_iq, deemph_avg=deemph_avg,
                                dc_avg=dc_avg, resamp=resamp,
-                               squelch_hits=squelch_hits)
+                               squelch_hits=squelch_hits,
+                               sincresamp=sincresamp)
     return new_state, audio, n_valid, level
 
 

@@ -67,9 +67,21 @@ def fm_chunk_step(cfg: fmchain.FmConfig, state: fmchain.FmState, blocks,
             state.prev_iq, blocks.reshape(-1), d, kpb, rotate=rotate)
         return _fm_tail(cfg, state, audio, levels, prev_iq,
                         state.squelch_hits, m)
-    # capture head over the whole chunk at once, planar output; the fs/4
-    # phase is continuous across blocks because n % 4 == 0
-    zi, zq = ops.capture_frontend_planar(blocks.reshape(-1), d, rotate)
+    if cfg.dc_block_raw:
+        # raw DC block: the per-block EMA of the block means as one affine
+        # scan, then fs/4 derotate and the aligned boxcar in torch ops
+        x = fmchain.rescale_cs16(blocks.reshape(-1)).reshape(m, n, 2)
+        avgs = _ema_scan(x.mean(dim=1), state.dc_iq, 9)        # (M, 2)
+        x = (x - avgs[:, None, :]).reshape(m * n, 2)
+        if rotate:
+            x = ops.rotate_fs4(x)
+        z = x.reshape(m * kpb, d, 2).sum(dim=1)
+        zi, zq = z[:, 0].contiguous(), z[:, 1].contiguous()
+        state = state._replace(dc_iq=avgs[-1])
+    else:
+        # capture head over the whole chunk at once, planar output; the
+        # fs/4 phase is continuous across blocks because n % 4 == 0
+        zi, zq = ops.capture_frontend_planar(blocks.reshape(-1), d, rotate)
 
     # --- squelch levels per block ---------------------------------------
     zib = zi.reshape(m, kpb)

@@ -11,7 +11,8 @@ Counterpart of :mod:`rx_tools_tpu.ops.filters`.
   plus a row-carry scan (:func:`_iir_scan_flat_mxu`, the CUDA form —
   one pass over the data instead of log2(block) passes).
 - :func:`dc_block_audio` — block-mean DC removal with exponential
-  smoothing across blocks (``rtl_fm.c:684-697``).
+  smoothing across blocks (``rtl_fm.c:684-697``); :func:`dc_block_raw`
+  is its twin on raw I/Q before demodulation (``rtl_fm.c:699-721``).
 - :func:`rms_level_planar` — the squelch power estimator with
   DC-in-squares correction (``rms``, ``rtl_fm.c:739-757``).
 """
@@ -179,6 +180,14 @@ def dc_block_audio(dc_avg, x, block_const: int = 9):
     avg = div_const(avg + dc_avg * float(block_const),
                     float(block_const + 1))
     return avg, x - avg
+
+
+def dc_block_raw(dc_iq, x, block_const: int = 9):
+    """Raw I/Q DC block before demodulation (``-E rdc``, rtl_fm.c:699-721):
+    ``dc_iq`` (2,) carried averages, ``x`` (N, 2)."""
+    avg = torch.mean(x, dim=0)
+    avg = div_const(avg + dc_iq * float(block_const), float(block_const + 1))
+    return avg, x - avg[None, :]
 
 
 def rms_level_planar(zi, zq):

@@ -19,6 +19,9 @@ Two float formulations, as in the reference:
   every window a difference of two lanes of one extended row.  Its batched
   twin :func:`resample_rows_blocks` runs M per-block calls as one and
   gives the same values as the loop.
+
+:func:`resample_sinc` is the polyphase windowed-sinc resampler of
+``-E hq`` (beyond the reference).
 """
 
 from __future__ import annotations
@@ -34,16 +37,62 @@ from rx_tools_tpu_torch.ops.numeric import device_const
 
 
 class SincResampleState(NamedTuple):
-    """Carry of the polyphase sinc resampler (``-E hq``, not yet ported):
-    kept as the dummy ``FmState.sincresamp`` field."""
+    """Carry for :func:`resample_sinc`: FIR tail + exact rational phase."""
     tail: torch.Tensor     # (T,) trailing input samples
-    num: torch.Tensor      # () int32 phase numerator
+    num: torch.Tensor      # () int32 phase numerator (units of 1/slow input)
 
     @staticmethod
     def init(taps: int, device=None):
         return SincResampleState(
             torch.zeros((taps,), dtype=torch.float32, device=device),
             torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _sinc_phase_lut(taps: int, phases: int, cutoff: float) -> np.ndarray:
+    """(phases, taps) windowed-sinc interpolation weights, unity gain."""
+    w = np.empty((phases, taps), np.float32)
+    center = (taps - 1) / 2.0
+    for p in range(phases):
+        frac = p / phases
+        t = np.arange(taps) - center - frac
+        h = np.sinc(cutoff * t) * cutoff * np.kaiser(taps, 8.6)
+        w[p] = h / h.sum()
+    return w
+
+
+def resample_sinc(state: SincResampleState, x: torch.Tensor, fast: int,
+                  slow: int, taps: int = 16, phases: int = 128):
+    """Polyphase windowed-sinc resampler (``-E hq``), beyond the reference.
+
+    Output ``k`` sits at input position ``(num0 + k*fast) / slow``: the
+    integer part picks a ``taps``-wide window of ``concat(tail, x)``, the
+    fraction one of ``phases`` Kaiser-sinc weight rows.  The phase is exact
+    integer arithmetic (the reference package's int32 guard kept).
+    Returns ``(state, y, n_valid)`` with :func:`resample_rational`'s
+    capacity convention; unity gain."""
+    g = math.gcd(int(fast), int(slow))
+    fast, slow = int(fast) // g, int(slow) // g
+    n = x.shape[0]
+    cap = n * slow // fast + 2
+    if cap * fast + slow >= 2 ** 31:
+        raise ValueError("block too large for int32 resampler phase")
+    dev = x.device
+    lut = device_const(_sinc_phase_lut, int(taps), int(phases),
+                       min(1.0, slow / fast), device=dev)
+    xp = torch.cat([state.tail, x])                     # (T + N,)
+    k = torch.arange(cap, device=dev)
+    num = state.num.to(torch.int64) + k * fast          # position * slow
+    idx = num // slow                                   # input index
+    ph = ((num - idx * slow) * phases) // slow
+    valid = idx + taps - 1 < xp.shape[0]
+    idxc = torch.clamp(idx, 0, xp.shape[0] - taps)
+    windows = xp[idxc[:, None] + torch.arange(taps, device=dev)[None, :]]
+    y = (windows * lut[ph]).sum(dim=1)
+    y = torch.where(valid, y, torch.zeros_like(y))
+    n_valid = valid.to(torch.int32).sum(dtype=torch.int32)
+    new_num = state.num + n_valid * fast - n * slow
+    return (SincResampleState(xp[-taps:], new_num.to(torch.int32)),
+            y, n_valid)
 
 
 class ResampleState(NamedTuple):

@@ -1,0 +1,72 @@
+"""Checkpoint/resume for streaming state.
+
+Counterpart of :mod:`rx_tools_tpu.stream.checkpoint`, in the same file
+format, so a checkpoint written by either package resumes in the other:
+an ``.npz`` of the state's leaves as ``leaf_{i}`` plus a JSON ``__meta__``
+dict, written atomically (a sibling temp file, then ``os.replace``).  The
+leaves are stored in ``jax.tree.flatten`` order — depth first over the
+NamedTuple fields — and carry no names: interop is by that order alone,
+with every leaf's dtype and shape (``boxcar.phase`` and ``squelch_hits``
+are int32 0-d arrays in both packages).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import torch
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a nest of NamedTuples (a chain state), in
+    ``jax.tree.flatten`` order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    raise TypeError(f"not a state nest: {type(tree)}")
+
+
+def _rebuild(template, leaves):
+    """``template`` with its tensors taken in order from ``leaves``."""
+    if isinstance(template, torch.Tensor):
+        return next(leaves)
+    return type(template)(*(_rebuild(v, leaves) for v in template))
+
+
+def save_checkpoint(path: str, state, meta: dict | None = None) -> None:
+    """Atomic: a kill mid-save leaves the previous checkpoint intact."""
+    arrays = {f"leaf_{i}": x.detach().cpu().numpy()
+              for i, x in enumerate(tree_leaves(state))}
+    arrays["__meta__"] = np.frombuffer(
+        json.dumps(meta or {}).encode(), dtype=np.uint8)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)
+
+
+def read_meta(path: str) -> dict:
+    """Just the meta dict: a cheap check before restoring the state."""
+    with np.load(path) as z:
+        return json.loads(bytes(z["__meta__"].tobytes()).decode() or "{}")
+
+
+def load_checkpoint(path: str, state_like):
+    """Restore a state saved by :func:`save_checkpoint` (either package).
+
+    ``state_like``: a template with the same structure (e.g. a fresh
+    ``init_state(cfg, device)``); each leaf is cast to the template leaf's
+    dtype and shape and placed on its device.  Raises ``KeyError`` for a
+    missing leaf and ``ValueError`` for a shape that does not fit.
+    Returns ``(state, meta)``."""
+    template = tree_leaves(state_like)
+    with np.load(path) as z:
+        loaded = [z[f"leaf_{i}"] for i in range(len(template))]
+        meta = json.loads(bytes(z["__meta__"].tobytes()).decode() or "{}")
+    restored = [torch.as_tensor(np.asarray(arr).reshape(tuple(t.shape)))
+                .to(device=t.device, dtype=t.dtype)
+                for arr, t in zip(loaded, template)]
+    return _rebuild(state_like, iter(restored)), meta

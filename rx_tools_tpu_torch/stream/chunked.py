@@ -1,7 +1,6 @@
 """Chunked streaming: one device round trip per ``chunk`` blocks.
 
-Counterpart of :mod:`rx_tools_tpu.stream.chunked` (checkpointing is not
-yet ported).  The runner reads ``chunk`` blocks from the source, moves
+Counterpart of :mod:`rx_tools_tpu.stream.chunked`.  The runner reads ``chunk`` blocks from the source, moves
 them to the device in one copy, runs them through the chain engine, and
 drains audio + valid counts + levels to the host once per chunk — so
 per-call overheads amortize 1/chunk while squelch and level metering
@@ -14,6 +13,12 @@ the default) or ``engine="flat"`` (``models/fmchunk.py``, chunk-wide;
 full chunks only, partial tail chunks take the scan engine).  The default
 comes from ``RX_ENGINE``; ``fused`` (default ``RX_FUSED``) selects the
 one-kernel front.
+
+Checkpoints (``checkpoint_path``, every ``checkpoint_every`` blocks, 0 =
+every drained chunk) hold the state of the chunk drained last, one chunk
+behind the card, with the counters a resume needs
+(``stream/pipeline.py::CheckpointMixin``; the format loads in both
+packages).
 """
 
 from __future__ import annotations
@@ -29,11 +34,11 @@ import torch
 from rx_tools_tpu_torch.device import resolve_device
 from rx_tools_tpu_torch.iq.sources import Source
 from rx_tools_tpu_torch.models import fmchain, fmchunk
-from rx_tools_tpu_torch.stream.pipeline import RunnerStats
+from rx_tools_tpu_torch.stream.pipeline import CheckpointMixin, RunnerStats
 from rx_tools_tpu_torch.stream.scan import scan_fm_blocks
 
 
-class ChunkedFmRunner:
+class ChunkedFmRunner(CheckpointMixin):
     """Drive the FM chain over a source in chunks of ``chunk`` blocks."""
 
     def __init__(self, cfg: fmchain.FmConfig, source: Source,
@@ -42,7 +47,8 @@ class ChunkedFmRunner:
                  on_squelch: Callable[[], bool] | None = None,
                  exit_on_squelch: bool = False,
                  engine: str | None = None, fused: bool | None = None,
-                 device=None):
+                 device=None, checkpoint_path: str | None = None,
+                 checkpoint_every: int = 0):
         self.cfg = cfg
         self.source = source
         self.sink = sink
@@ -57,6 +63,9 @@ class ChunkedFmRunner:
         self.state = fmchain.init_state(cfg, self.device)
         self.stats = RunnerStats()
         self._stop = False
+        self.checkpoint_path = checkpoint_path
+        self.checkpoint_every = int(checkpoint_every)
+        self._last_ckpt_blocks = 0
         self.fused = fused
         if engine is None:
             engine = "flat" if os.environ.get("RX_ENGINE", "") == "flat" \
@@ -92,7 +101,7 @@ class ChunkedFmRunner:
 
     def run(self, max_blocks: int | None = None) -> RunnerStats:
         t0 = time.perf_counter()
-        pending = None
+        pending = None          # (outputs, checkpoint snapshot)
         while not self._stop:
             blocks, n_read = self._read_chunk(max_blocks)
             if blocks is None:
@@ -100,13 +109,16 @@ class ChunkedFmRunner:
             self.state, *out = self._step(blocks)
             self.stats.blocks += blocks.shape[0]
             self.stats.samples_in += n_read
+            snap = (self.state, self.stats.blocks, self.stats.samples_in)
             if pending is not None:
-                self._drain(*pending)
-            pending = out
+                self._drain(*pending[0])
+                self._maybe_checkpoint(*pending[1])
+            pending = (out, snap)
             if max_blocks is not None and self.stats.blocks >= max_blocks:
                 break
         if pending is not None:
-            self._drain(*pending)
+            self._drain(*pending[0])
+            self._maybe_checkpoint(*pending[1])
         self.stats.wall_s = time.perf_counter() - t0
         return self.stats
 

@@ -17,7 +17,8 @@ semantics with the carried state, so the output equals stepping
 (the tests pin it).  On CUDA the batched tail's matrix products may run
 other cuBLAS algorithms than the per-block ones, so equality is held at
 float rounding there.  Stateful-front configs (squelch gating, the opt-in
-fused kernel) take the per-block loop.
+fused kernel) and the stateful heads (fifth-order cascade, polyphase
+FIR, raw DC block) take the per-block loop.
 """
 
 from __future__ import annotations
@@ -40,11 +41,13 @@ def stack_blocks(iq: np.ndarray, block_size: int) -> np.ndarray:
 
 
 def _batched_front_ok(cfg: fmchain.FmConfig, fused: bool | None) -> bool:
-    """The chunk-wide front needs a stateless capture path: squelch off
-    (per-block zeroing feeds the discriminator) and not the opt-in fused
-    kernel (which fuses capture+disc per block by design).  The boxcar head
-    it also needs is the only one ``fmchain.check_supported`` lets in."""
-    return cfg.squelch_level == 0 and not fused_eligible(cfg, fused)
+    """The chunk-wide front needs a stateless capture path: the boxcar head
+    (no fifth-order, polyphase-FIR or raw-DC history to carry from block to
+    block), squelch off (per-block zeroing feeds the discriminator) and not
+    the opt-in fused kernel (which fuses capture+disc per block by
+    design)."""
+    return (fmchain.boxcar_head(cfg) and cfg.squelch_level == 0
+            and not fused_eligible(cfg, fused))
 
 
 def scan_fm_blocks(cfg: fmchain.FmConfig, state: fmchain.FmState, blocks,
@@ -89,6 +92,7 @@ def _scan_batched_front(cfg, state, blocks):
 
     k2 = kpb // max(cfg.post_downsample, 1)
     batched_rs = (cfg.mode != "raw" and cfg.rate_out2 > 0
+                  and cfg.resample_quality == 0
                   and not cfg.dc_block_audio
                   and rows_path_eligible(k2, cfg.rate_out, cfg.rate_out2,
                                          dev))

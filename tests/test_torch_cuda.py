@@ -147,3 +147,61 @@ def test_results_do_not_depend_on_grid(cuda, grids):
     assert torch.equal(d0, d1) and torch.equal(l0, l1) and torch.equal(p0, p1)
     assert all(torch.equal(a, b) for a, b in zip(*heads))
 
+
+
+@pytest.mark.parametrize("a", [13, 8, 1])
+@pytest.mark.parametrize("n", [1368, 1, 9000])
+def test_int_deemph_bitwise(cuda, a, n):
+    """The integer de-emphasis kernel against its host walk: negative
+    samples and starting averages, odd and even a, one-sample blocks and
+    blocks longer than one shared-memory tile."""
+    from rx_tools_tpu_torch.ops import intaudio
+    rng = np.random.default_rng(n + a)
+    x = torch.as_tensor(rng.integers(-32768, 32767, n))
+    for avg0 in (0, -1234, 70000):
+        avg = torch.tensor(avg0, dtype=torch.int64)
+        before = intaudio.deemph_int.launches
+        ga, gy = intaudio.deemph_int(avg.to(cuda), x.to(cuda), a)
+        pa, py = intaudio.deemph_int_plain(avg, x, a)
+        torch.cuda.synchronize()
+        assert intaudio.deemph_int.launches == before + 1
+        assert int(ga) == int(pa)
+        assert torch.equal(gy.cpu(), py)
+    # one-sample calls carry like one call over the block
+    avg = torch.tensor(-77, dtype=torch.int64, device=cuda)
+    ys = []
+    for v in x[:40].tolist():
+        avg, y1 = intaudio.deemph_int(avg, torch.tensor([v], device=cuda), a)
+        ys.append(y1)
+    _, y_all = intaudio.deemph_int_plain(torch.tensor(-77), x[:40], a)
+    assert torch.equal(torch.cat(ys).cpu(), y_all)
+
+
+@pytest.fixture
+def tf32_on():
+    """TF32 allowed for convolutions and matrix products (cuDNN's
+    documented default) for one test."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def test_fir_decimate_card_matches_cpu(cuda, tf32_on):
+    """The polyphase FIR on the card against the CPU with TF32 allowed in
+    the process: no convolution or matrix product runs, so the card keeps
+    float32 (tests/test_polyfir.py:22's bound)."""
+    from rx_tools_tpu_torch.ops import polyfir
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(rng.standard_normal((8208, 2)).astype(np.float32))
+    taps = torch.as_tensor(polyfir.design_lowpass(64, 1 / 6))
+    st = polyfir.PolyFirState.init(64)
+    cs, cy = polyfir.fir_decimate(st, x, taps, 6)
+    gs, gy = polyfir.fir_decimate(
+        polyfir.PolyFirState(st.tail.to(cuda)), x.to(cuda), taps.to(cuda), 6)
+    np.testing.assert_allclose(gy.cpu().numpy(), cy.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(gs.tail.cpu(), cs.tail)

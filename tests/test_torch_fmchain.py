@@ -108,6 +108,10 @@ SCAN_CASES = [
     dict(offset_tuning=True),
     dict(squelch_level=30.0),                         # per-block loop
     dict(fused=True),                                 # per-block loop
+    dict(dc_block_raw=True),                          # stateful heads:
+    dict(downsample_passes=1, downsample=2),          # per-block loop
+    dict(fir_quality=24),
+    dict(resample_quality=16),
 ]
 
 
@@ -167,6 +171,11 @@ FLAT_CONFIGS = [
          downsample=6),
     dict(mode="fm", rate_in=48000, rate_out=48000, rate_out2=-1,
          downsample=8, custom_atan=1, squelch_level=50.0),
+    dict(mode="fm", rate_in=170000, rate_out=170000, rate_out2=32000,
+         downsample=6, custom_atan=1, deemph_a=7, dc_block_raw=True),
+    dict(mode="am", rate_in=24000, rate_out=24000, rate_out2=-1,
+         downsample=6, output_scale=2, dc_block_raw=True,
+         offset_tuning=True),
 ]
 
 
@@ -229,10 +238,83 @@ def test_state_carries_across_packages():
         ref_scan.gather_valid(np.asarray(ra), np.asarray(rnv)), **STAGE)
 
 
-def test_unported_heads_raise():
-    for kw in (dict(dc_block_raw=True), dict(downsample_passes=2),
-               dict(fir_quality=64), dict(resample_quality=32)):
-        cfg = dataclasses.replace(_wbfm(), **kw)
-        with pytest.raises(NotImplementedError):
-            fmchain.fm_chain_step(cfg, fmchain.init_state(cfg, "cpu"),
-                                  _blocks(_wbfm(), 1)[0])
+def _step_vs_reference(cfg, blocks):
+    """Step both chains block by block: same counts, audio at stage
+    tolerance, PCM within 1 LSB, levels and state at stage tolerance."""
+    rcfg = ref_chain.FmConfig(**dataclasses.asdict(cfg))
+    st = fmchain.init_state(cfg, "cpu")
+    rst = ref_chain.init_state(rcfg)
+    for b in blocks:
+        st, a, nv, lv = fmchain.fm_chain_step(cfg, st, b)
+        rst, ra, rnv, rlv = ref_chain.fm_chain_step(rcfg, rst, b)
+        assert int(nv) == int(rnv)
+        np.testing.assert_allclose(a.numpy(), np.asarray(ra), **STAGE)
+        pcm = fmchain.audio_to_int16(a.numpy()[: int(nv)]).astype(int)
+        assert np.abs(pcm - ref_chain.audio_to_int16(
+            np.asarray(ra)[: int(rnv)])).max(initial=0) <= 1
+        assert float(lv) == pytest.approx(float(rlv), rel=1e-4)
+    for got, want in zip(_leaves(st), _ref_leaves(rst)):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        np.testing.assert_allclose(got, want, **STAGE)
+
+
+@pytest.mark.parametrize("kw", [dict(dc_block_raw=True),
+                                dict(downsample_passes=2, downsample=4,
+                                     comp_fir_size=9),
+                                dict(fir_quality=64),
+                                dict(resample_quality=32)],
+                         ids=["rdc", "fifth-droop", "polyfir", "sinc"])
+def test_stateful_heads_match_reference(kw):
+    """Each head off the boxcar path, and the sinc resampler, against the
+    reference chain at tests/test_fmchunk.py:43's bound."""
+    cfg = dataclasses.replace(_wbfm(), **kw)
+    _step_vs_reference(cfg, _blocks(cfg, 4, seed=2, amp=8000))
+
+
+def _planned(**kw):
+    cfg, _, _ = fmchain.plan_capture(fmchain.FmConfig(**kw), 100e6)
+    return cfg
+
+
+BASELINE = {
+    # BASELINE config #2: -M nbfm -s 96k -r 48k -F 9 -l 10 (D = 16, 4 passes)
+    "config2": _planned(mode="fm", rate_in=96000, rate_out=96000,
+                        rate_out2=48000, downsample_passes=1,
+                        comp_fir_size=9, squelch_level=10.0),
+    # BASELINE config #3: -M am -s 24k -E dc -E offset (D = 42), and -E rdc
+    "config3": _planned(mode="am", rate_in=24000, rate_out=24000,
+                        dc_block_audio=True, offset_tuning=True),
+    "config3-rdc": _planned(mode="am", rate_in=24000, rate_out=24000,
+                            dc_block_audio=True, offset_tuning=True,
+                            dc_block_raw=True),
+    # -E hq at the wbfm preset: polyphase FIR (64 taps) + sinc (32 taps)
+    "wbfm-hq": dataclasses.replace(_planned(
+        mode="fm", rate_in=170000, rate_out=170000, rate_out2=32000,
+        custom_atan=1, deemph_a=13), fir_quality=64, resample_quality=32),
+}
+
+
+@pytest.mark.parametrize("name", list(BASELINE))
+def test_baseline_configs_match_reference(name):
+    cfg = BASELINE[name]
+    assert cfg.downsample == {"config2": 16, "wbfm-hq": 6}.get(name, 42)
+    _step_vs_reference(cfg, _blocks(cfg, 4, seed=4, amp=12000, target=None))
+
+
+@pytest.mark.parametrize("name", list(BASELINE))
+def test_scan_engine_bit_identical_for_stateful_heads(name):
+    """The scan engine keeps per-block carries for the stateful heads: its
+    output equals stepping bit for bit."""
+    cfg = BASELINE[name]
+    _scan_vs_stepping(cfg, _blocks(cfg, 4, seed=5, target=None))
+
+
+def test_entry_twin_runs_the_wbfm_step():
+    from rx_tools_tpu_torch import entry
+    fn, (state, block) = entry.entry("cpu")
+    st, audio, nv, lv = fn(state, block)
+    want = fmchain.fm_chain_step(_wbfm(), fmchain.init_state(_wbfm(), "cpu"),
+                                 block)
+    assert int(nv) == int(want[2]) > 0
+    assert torch.equal(audio, want[1])
+    assert state.prev_iq.device.type == "cpu"

@@ -43,6 +43,9 @@ def test_import_leaves_jax_out():
             "import rx_tools_tpu_torch.apps.rx_fm, rx_tools_tpu_torch.stream\n"
             "import rx_tools_tpu_torch.models.fmchunk\n"
             "import rx_tools_tpu_torch.models.convert\n"
+            "import rx_tools_tpu_torch.models.fmint, rx_tools_tpu_torch.entry\n"
+            "import rx_tools_tpu_torch.stream.checkpoint\n"
+            "import rx_tools_tpu_torch.stream.pipeline\n"
             "import rx_tools_tpu_torch.kernels.build\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'rx_tools_tpu.')) or m == 'rx_tools_tpu']\n"
@@ -77,6 +80,12 @@ def test_entry_points_refuse_cpu_fallback(no_cuda, tmp_path):
     st = fmchain.init_state(cfg, "cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.fm_state_from_numpy(convert.fm_state_to_numpy(st))
+    from rx_tools_tpu_torch import entry
+    from rx_tools_tpu_torch.models import fmint
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fmint.init_state()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.entry()
     out = tmp_path / "a.raw"
     with pytest.raises(RuntimeError, match="CUDA"):
         rx_fm.main(["-f", "100.3M", "-M", "wbfm", "-d", "synth=fm",
@@ -91,6 +100,15 @@ def test_kernel_wrappers_refuse_non_cuda_tensors():
         frontend_mxu._launch_head(x, 6, True, False, "K1")
     with pytest.raises(ValueError, match="CUDA"):
         fused_frontend.fused_capture_fm(torch.zeros(2), x, 6, 8)
+    from rx_tools_tpu_torch.ops import intaudio
+    meta = torch.zeros(4, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        intaudio.deemph_int(torch.zeros((), dtype=torch.int64,
+                                        device="meta"), meta, 13)
+    before_d = intaudio.deemph_int.launches
+    intaudio.deemph_int(torch.zeros((), dtype=torch.int64),
+                        torch.arange(4), 13)
+    assert intaudio.deemph_int.launches == before_d
     # the plain versions serve CPU tensors: no kernel launch is counted
     before = frontend_mxu.capture_frontend_mm_pallas.launches
     frontend_mxu.capture_frontend_mm_pallas(x, 6)

@@ -62,17 +62,7 @@ def test_rx_fm_wbfm_matches_reference_cli(tmp_path):
     assert abs(fr[np.argmax(sp)] - 1000.0) < 20
 
 
-@pytest.mark.parametrize("flags,name", [
-    (["--int-audio"], "--int-audio"),
-    (["-E", "shard"], "-E shard"),
-    (["--checkpoint", "ck.npz"], "--checkpoint/--resume"),
-    (["--resume", "ck.npz"], "--checkpoint/--resume"),
-    (["-b", "1"], "-b 1"),
-    (["-F", "9"], "-F"),
-    (["-E", "hq"], "-E hq"),
-    (["-E", "rdc"], "-E rdc"),
-    (["-l", "40", "-f", "101M"], "scanning over several -f"),
-])
+@pytest.mark.parametrize("flags,name", [(["-E", "shard"], "-E shard")])
 def test_unported_flags_exit_1(flags, name, capsys, tmp_path):
     rc = rx_fm.main(["-f", "100.3M", "-M", "wbfm", "-d", SYNTH] + flags
                     + [str(tmp_path / "out.raw")])
@@ -81,5 +71,71 @@ def test_unported_flags_exit_1(flags, name, capsys, tmp_path):
     assert name in err and "not yet ported" in err
 
 
+@pytest.mark.parametrize("flags", [
+    ["--int-audio"],
+    ["--checkpoint", "ck.npz"],
+    ["--resume", "ck.npz"],
+    ["-b", "1"],
+    ["-F", "9"],
+    ["-E", "hq"],
+    ["-E", "rdc"],
+    ["-l", "40", "-f", "101M"],
+], ids=["int-audio", "checkpoint", "resume", "b1", "F9", "hq", "rdc",
+        "scanning"])
+def test_flag_matches_reference_cli(flags, tmp_path):
+    """Each flag once refused is now served: the port's CLI bytes against
+    the reference CLI's on one capture — identical for --int-audio, the
+    same count and at most 1 LSB apart for the float chain."""
+    cap = tmp_path / "cap.cs16"
+    _capture(17 * 8208).tofile(cap)
+    args = ["-f", "100.3M", "-M", "wbfm", "-b", "4",
+            "-d", f"file={cap},format=CS16,rate=1020k"]
+    flags = [str(tmp_path / f) if f.endswith(".npz") else f for f in flags]
+    out_ref, out = tmp_path / "ref.raw", tmp_path / "port.raw"
+    assert ref_rx_fm.main(args + flags + [str(out_ref)]) == 0
+    for f in tmp_path.glob("*.npz"):
+        f.unlink()
+    assert rx_fm.main(args + flags + [str(out)]) == 0
+    want = np.fromfile(out_ref, np.int16)
+    pcm = np.fromfile(out, np.int16)
+    assert pcm.size == want.size > 2000
+    if flags == ["--int-audio"]:
+        np.testing.assert_array_equal(pcm, want)
+    else:
+        assert np.abs(pcm.astype(int) - want.astype(int)).max() <= 1
+    if "--checkpoint" in flags:
+        assert (tmp_path / "ck.npz").exists()
+
+
 def test_rx_fm_scan_requires_squelch():
     assert rx_fm.main(["-f", "100M", "-f", "101M"]) == 1
+
+
+@pytest.mark.parametrize("flags,synth,rate", [
+    # BASELINE config #2: -s 96k -F 9 resolves D = 16 (4 passes), 1.536M
+    (["-f", "100M", "-M", "nbfm", "-s", "96k", "-r", "48k", "-F", "9",
+      "-l", "10"], "synth=fm,audio=800,dev=5k,amp=0.8,carrier=100M",
+     1_536_000),
+    # BASELINE config #3: -s 24k, D = 42 at 1.008M, offset tuning; and rdc
+    (["-f", "100M", "-M", "am", "-s", "24k", "-E", "dc", "-E", "offset"],
+     "synth=am,audio=600,amp=0.5,carrier=100.002M", 1_008_000),
+    (["-f", "100M", "-M", "am", "-s", "24k", "-E", "dc", "-E", "offset",
+      "-E", "rdc"], "synth=am,audio=600,amp=0.5,carrier=100.002M",
+     1_008_000),
+], ids=["config2", "config3", "config3-rdc"])
+def test_baseline_config_matches_reference_cli(flags, synth, rate, tmp_path):
+    """BASELINE configs #2 and #3 through both CLIs on one capture: the
+    same PCM count, at most 1 LSB apart."""
+    src = sources.make_source(synth)
+    src.set_sample_rate(rate)
+    src.set_frequency(100e6 + (0 if "offset" in flags else rate / 4))
+    cap = tmp_path / "cap.cs16"
+    src.read_stream(24 * 8232)[1].tofile(cap)
+    args = flags + ["-d", f"file={cap},format=CS16,rate={rate}"]
+    out_ref, out = tmp_path / "ref.raw", tmp_path / "port.raw"
+    assert ref_rx_fm.main(args + [str(out_ref)]) == 0
+    assert rx_fm.main(args + [str(out)]) == 0
+    want = np.fromfile(out_ref, np.int16)
+    pcm = np.fromfile(out, np.int16)
+    assert pcm.size == want.size > 2000
+    assert np.abs(pcm.astype(int) - want.astype(int)).max() <= 1
