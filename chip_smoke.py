@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's rx_fm chains on one CUDA card and check them.
+"""Drive the PyTorch port's rx_fm chains and rx_power on one CUDA card and
+check them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA card and the CUDA toolkit (nvcc); it builds the kernels from
@@ -50,7 +51,21 @@ Phases, in order:
    (identical to an uninterrupted run; the card's checkpoint loads on the
    CPU); scanning two ``-f`` with ``-l``, the first silent (a hop counted,
    audio emitted);
-8. one JSON line listing every kernel entry point, then the result line.
+8. rx_power (no hand-written kernel on its path: the float tier's FFT is
+   cuFFT through ``torch.fft``, ``--int-fft`` int32 torch ops), each CLI
+   run on the card and then on the CPU from one seeded synth, the rows
+   compared from column 2 on (float: columns 2-5 identical, dB within 0.02
+   wherever the CPU's lies within 60 dB of its row's peak, ``-inf`` alike;
+   ``--int-fft``: identical): BASELINE config #4 (one 2048-bin hop, the
+   peak in the strongest tone's bin); config #5 (402 hops over 100M-1G,
+   three emitters each 15 dB over the median floor) in both tiers; ``-F
+   9``, ``-P`` and giant bins; a checkpoint written on the card, loaded
+   and resumed on the CPU; then, with CUDA events, ``sweep_step`` and
+   ``int_sweep_powers`` at config #5's shape and at the FFT-integration
+   shape (16.8 M complex samples), with their rates, bounds and CUDA
+   kernels a call, and config #5's CLI split into host read, device step
+   and CSV flush;
+9. one JSON line listing every kernel entry point, then the result line.
 """
 
 import json
@@ -102,6 +117,250 @@ def ulp_distance(a, b):
     ai = a.astype(np.float32).view(np.int32).astype(np.int64)
     bi = b.astype(np.float32).view(np.int32).astype(np.int64)
     return int(np.abs(ai - bi).max()) if ai.size else 0
+
+
+POWER_SRC = "synth=tone,det=1,seed=2,carrier=101M|104M,amp=0.4|0.3,noise=0.02"
+# BASELINE config #5's scene: three emitters in hops far apart
+POWER_SCENE = ("synth=tone,det=1,seed=4,carrier=150.3M|480.7M|901.1M,"
+               "amp=0.4|0.4|0.4,noise=0.01")
+
+
+def csv_rows(path):
+    """rx_power CSV rows from column 2 on (the timestamp differs)."""
+    with open(path) as f:
+        return [line.strip().split(", ")[2:] for line in f]
+
+
+def rows_agree(what, gpu, cpu, exact):
+    """Card rows against CPU rows; returns the largest dB difference over
+    the compared bins."""
+    import numpy as np
+    if len(gpu) != len(cpu) or not gpu:
+        fail(f"{what}: card {len(gpu)} vs CPU {len(cpu)} CSV rows")
+    if exact:
+        if gpu != cpu:
+            fail(f"{what}: card and CPU --int-fft rows differ")
+        return 0.0
+    worst = 0.0
+    for g, c in zip(gpu, cpu):
+        if g[:4] != c[:4] or len(g) != len(c):
+            fail(f"{what}: columns 2-5 differ: {g[:4]} vs {c[:4]}")
+        gd, cd = np.array(g[4:], float), np.array(c[4:], float)
+        if not (np.isneginf(gd) == np.isneginf(cd)).all():
+            fail(f"{what}: -inf bins differ")
+        fin = np.isfinite(cd)
+        near = fin & (cd >= cd[fin].max(initial=-np.inf) - 60.0)
+        worst = max(worst, float(np.abs(gd[near] - cd[near]).max(initial=0)))
+    if worst > 0.02:
+        fail(f"{what}: card and CPU dB differ by {worst}")
+    return worst
+
+
+def cuda_kernels_per_call(fn, args):
+    """CUDA kernels one call launches, from a ``torch.profiler`` trace
+    (copies and fills not counted); None when the profiler cannot trace
+    the card or the trace has no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+    except RuntimeError as e:
+        print(f"torch.profiler could not trace the card: {e}")
+        return None
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+    return len(kernels) if dev else None
+
+
+def rx_power_phase(dev, counted, tmp):
+    """Phase 8: rx_power on the card against the CPU, then its timings."""
+    import math
+
+    import numpy as np
+    import torch
+    from rx_tools_tpu_torch.apps import rx_power
+    from rx_tools_tpu_torch.kernels.timing import time_ms
+    from rx_tools_tpu_torch.models import powerscan
+    from rx_tools_tpu_torch.stream import checkpoint
+
+    def run(args, name, cpu=False):
+        old = os.environ.get("RX_PLATFORM")
+        if cpu:
+            os.environ["RX_PLATFORM"] = "cpu"
+        try:
+            rc = rx_power.main(args + [str(tmp / name)])
+        finally:
+            if old is None:
+                os.environ.pop("RX_PLATFORM", None)
+            else:
+                os.environ["RX_PLATFORM"] = old
+        if rc != 0:
+            fail(f"rx_power {' '.join(args)} exited {rc}")
+        return csv_rows(tmp / name)
+
+    def card_vs_cpu(what, args, exact=False):
+        t = time.perf_counter()
+        gpu, counts = counted(lambda: run(args, "gpu.csv"))
+        gpu_s = time.perf_counter() - t
+        cpu = run(args, "cpu.csv", cpu=True)
+        worst = rows_agree(what, gpu, cpu, exact)
+        print(f"{what}: {len(gpu)} rows x {len(gpu[0]) - 4} dB values, "
+              f"card vs CPU {'identical' if exact else f'max |dB| {worst}'}"
+              f", card run {gpu_s:.2f} s, launches {counts}")
+        return gpu
+
+    # (a) BASELINE config #4: one hop at 2 Msps, 2048 bins
+    c4 = card_vs_cpu("config #4 (-f 99M:101M:1k -w hamming)", [
+        "-f", "99M:101M:1k", "-w", "hamming", "-1", "-S", "0", "-d",
+        "synth=tone,det=1,seed=4,carrier=100.3M|99.4M|100.7M,"
+        "amp=0.5|0.1|0.2,noise=0.01"])
+    lo, step = float(c4[0][0]), float(c4[0][2])
+    dbs = np.array(c4[0][4:-1], float)
+    peak_hz = lo + int(np.argmax(dbs)) * step
+    if len(c4) != 1 or dbs.size != 2048 or abs(peak_hz - 100.3e6) > step:
+        fail(f"config #4: {len(c4)} rows, {dbs.size} bins, peak at "
+             f"{peak_hz} Hz (tone at 100.3 MHz)")
+    print(f"  config #4 peak at {peak_hz:.1f} Hz (tone 100300000, bin "
+          f"{step:.2f} Hz)")
+
+    # (b) BASELINE config #5: 402 hops, crop 20 %, three emitters
+    c5_args = ["-f", "100M:1G:10k", "-c", "20%", "-1", "-S", "0", "-d",
+               POWER_SCENE]
+    c5 = card_vs_cpu("config #5 (-f 100M:1G:10k -c 20%)", c5_args)
+    freqs, dbs = [], []
+    for row in c5:
+        lo, step = float(row[0]), float(row[2])
+        freqs += [lo + (i + 0.5) * step for i in range(len(row) - 4)]
+        dbs += [float(v) for v in row[4:]]
+    freqs, dbs = np.array(freqs), np.array(dbs)
+    floor = float(np.median(dbs))
+    over = {}
+    for c in (150.3e6, 480.7e6, 901.1e6):
+        near = np.abs(freqs - c) < 60e3
+        over[c] = float(dbs[near].max() - floor) if near.any() else -1e9
+    if len(c5) != 402 or min(over.values()) < 15:
+        fail(f"config #5: {len(c5)} rows, emitters over the floor {over}")
+    print(f"  config #5: emitters over the {floor:.2f} dB median floor: "
+          + ", ".join(f"{c / 1e6:.1f} MHz +{v:.1f} dB"
+                      for c, v in over.items()))
+
+    # (c) --int-fft at config #5: identical rows
+    card_vs_cpu("config #5 --int-fft", c5_args + ["--int-fft"], exact=True)
+
+    # (d) -F 9 (fifth-order cascade + droop), -P, giant bins
+    card_vs_cpu("-F 9 (-f 100M:100.5M:1k)", [
+        "-f", "100M:100.5M:1k", "-F", "9", "-1", "-S", "0", "-d",
+        "synth=tone,det=1,seed=5,carrier=100.2M,amp=0.4,noise=0.01"])
+    card_vs_cpu("-P (-f 100M:110M:10k -w blackman-harris)", [
+        "-f", "100M:110M:10k", "-P", "-w", "blackman-harris", "-1", "-S",
+        "0", "-d", POWER_SRC])
+    card_vs_cpu("giant bins (-f 100M:110M:1M)", [
+        "-f", "100M:110M:1M", "-1", "-S", "0", "-d", POWER_SRC])
+
+    # (e) a checkpoint written on the card loads and resumes on the CPU
+    ck_args = ["-f", "100M:104M:50k", "-S", "0", "-d", POWER_SRC]
+    for tier in ([], ["--int-fft"]):
+        ck = tmp / "power_ck.npz"
+        counted(lambda: run(ck_args + tier + ["-i", "1h", "-e", "0.001",
+                                              "--checkpoint", str(ck)],
+                            "none.csv"))
+        cfg = powerscan.PowerConfig(bin_e=6)
+        tmpl = (powerscan.SweepAccum(np.zeros((2, 64), np.int64),
+                                     np.zeros(2, np.int64)) if tier
+                else powerscan.new_sweep_accum(2, cfg, "cpu"))
+        acc, meta = checkpoint.load_checkpoint(str(ck), tmpl)
+        resumed = run(ck_args + tier + ["-1", "--resume", str(ck)],
+                      "resumed.csv", cpu=True)
+        if (meta["int_fft"] != bool(tier) or int(acc.samples.max()) != 128
+                or [r[3] for r in resumed] != ["256", "256"]):
+            fail(f"checkpoint {tier}: meta {meta}, samples "
+                 f"{acc.samples}, resumed {[r[3] for r in resumed]}")
+        print(f"checkpoint {' '.join(tier) or 'float'}: one sweep saved on "
+              f"the card (128 samples a hop), resumed on the CPU to 256")
+
+    # (f) timing: the device steps at config #5's shape and at the FFT
+    # integration shape (2048 bins x 512 segments x 16 hops; the int tier's
+    # guard eff*32768 < 2**31 caps a hop at 15 segments of 2048, so the
+    # same 16.8 M samples run there as 1024 hops of 8 segments)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for shape, tier, h, bin_e, segs, n_in in (
+            ("config5", "float", 402, 9, 16, 5),
+            ("config5", "int", 402, 9, 16, 5),
+            ("integration", "float", 16, 11, 512, 2),
+            ("integration", "int", 1024, 11, 8, 2)):
+        bin_len = 1 << bin_e
+        buf_len = 2 * bin_len * segs
+        cfg = powerscan.PowerConfig(bin_e=bin_e, buf_len=buf_len)
+        ins = [(torch.randint(-20000, 20000, (h, buf_len), generator=gen,
+                              device=dev, dtype=torch.int32)
+                .to(torch.int16),) for _ in range(n_in)]
+        if tier == "float":
+            acc = powerscan.new_sweep_accum(h, cfg, dev)
+
+            def fn(b, cfg=cfg, acc=acc):
+                return powerscan.sweep_step(cfg, acc, b)
+            io_bytes = 2 * h * buf_len + 2 * (4 * h * bin_len + 4 * h)
+        else:
+            def fn(b, cfg=cfg):
+                return powerscan.int_sweep_powers(cfg, b)
+            io_bytes = 2 * h * buf_len + 4 * bin_len + 4 * h * segs * bin_len
+        ms = time_ms(fn, ins, rounds=5, iters=10)
+        n_fft = h * segs
+        ops = 5 * bin_len * math.log2(bin_len) * n_fft
+        bound_ms, bound_by = bound(io_bytes, ops)
+        rec = {"rx_power": f"{tier} sweep step", "shape": shape,
+               "hops": h, "bins": bin_len, "segments": segs,
+               "complex_samples": h * segs * bin_len, "ms": ms,
+               "gcsps": h * segs * bin_len / ms / 1e6,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "cuda_kernels_per_call": cuda_kernels_per_call(fn, ins[0])}
+        print(json.dumps(rec))
+        del ins
+
+    # config #5 through the CLI, a few sweeps, split into host read
+    # (retune + synth reads), device step and CSV flush (host clocks; the
+    # device step synchronised)
+    for tier, step_name in (([], "sweep_step"), (["--int-fft"], "_int_sweep")):
+        spans = {"read": [], "step": [], "flush": []}
+        owner = powerscan if step_name == "sweep_step" else rx_power
+        saved = {"read": (rx_power, "read_sweep"),
+                 "step": (owner, step_name),
+                 "flush": (rx_power, "_flush_csv")}
+        originals = {k: getattr(m, n) for k, (m, n) in saved.items()}
+
+        def timed(key):
+            inner = originals[key]
+
+            def wrapper(*a, **kw):
+                t = time.perf_counter()
+                r = inner(*a, **kw)
+                torch.cuda.synchronize()
+                spans[key].append(time.perf_counter() - t)
+                return r
+            return wrapper
+
+        for key, (m, n) in saved.items():
+            setattr(m, n, timed(key))
+        try:
+            t = time.perf_counter()
+            counted(lambda: run(["-f", "100M:1G:10k", "-c", "20%", "-S", "0",
+                                 "-i", "0.001", "-e", "4", "-d", POWER_SCENE]
+                                + tier, "timed.csv"))
+            wall = time.perf_counter() - t
+        finally:
+            for key, (m, n) in saved.items():
+                setattr(m, n, originals[key])
+        rec = {"rx_power": "config #5 CLI", "tier": tier[0] if tier
+               else "float", "wall_s": wall, "sweeps": len(spans["step"]),
+               "read_s": spans["read"], "step_s": spans["step"],
+               "flush_s": spans["flush"]}
+        print(json.dumps(rec))
+        if not spans["step"]:
+            fail(f"config #5 CLI {tier}: no sweep completed")
 
 
 def main():
@@ -624,7 +883,20 @@ def main():
         if hops < 1 or pcm.size == 0 or abs(hz - 1000.0) > 10:
             fail("scanning did not hop to the station and emit its audio")
 
-    # ---- phase 8: the record ---------------------------------------------
+    # ---- phase 8: rx_power -----------------------------------------------
+    def counted(fn):
+        """``fn()`` on the card with every count from 0: (result, counts)."""
+        reset_counts()
+        result = fn()
+        counts = {k: f.launches for k, f in counters.items()}
+        for k, v in counts.items():
+            path_counts[k].append(v)
+        return result, counts
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rx_power_phase(dev, counted, Path(tmp))
+
+    # ---- phase 9: the record ---------------------------------------------
     kern["int_deemph"] = deemph
     lines = []
     for name, k in kern.items():

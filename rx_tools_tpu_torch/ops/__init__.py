@@ -6,7 +6,9 @@ memory passed explicitly as a small carried state (a NamedTuple of
 tensors) — the same contract as :mod:`rx_tools_tpu.ops`.  The capture-rate
 stages of the boxcar path are CUDA kernels (``frontend_mxu``,
 ``pallas_frontend``, ``fused_frontend``), and so is the integer tier's
-de-emphasis (``intaudio``).
+de-emphasis (``intaudio``).  rx_power's ops (``windows``, ``spectrum``,
+``intfft``) are plain torch: the float tier's FFT is ``torch.fft`` (cuFFT
+on the card), the ``--int-fft`` tier int32 arithmetic.
 """
 
 from rx_tools_tpu_torch.ops.fir import (
@@ -33,6 +35,11 @@ from rx_tools_tpu_torch.ops.pallas_frontend import (
 )
 from rx_tools_tpu_torch.ops.resample import (
     resample_rational, resample_sinc, ResampleState, SincResampleState,
+)
+from rx_tools_tpu_torch.ops.windows import window, window_coefs_int, WINDOWS
+from rx_tools_tpu_torch.ops.spectrum import (
+    segmented_power_spectrum, remove_dc, total_power, fftshift_quirks,
+    power_to_dbm,
 )
 
 __all__ = [k for k in dir() if not k.startswith("_")]

@@ -205,3 +205,51 @@ def test_fir_decimate_card_matches_cpu(cuda, tf32_on):
     np.testing.assert_allclose(gy.cpu().numpy(), cy.numpy(), rtol=1e-5,
                                atol=1e-5)
     assert torch.equal(gs.tail.cpu(), cs.tail)
+
+
+@pytest.mark.parametrize("window", ["rectangle", "hamming", "blackman-harris"])
+@pytest.mark.parametrize("bin_e,ds,h,buf_len", [
+    (9, 1, 402, 16384),           # BASELINE config #5's sweep
+    (11, 1, 2, 2 * 2048 * 64),    # config #4's 2048 bins, longer reads
+    (6, 4, 5, 2 * 64 * 4 * 8),    # boxcar decimation
+])
+def test_sweep_step_card_matches_cpu(cuda, window, bin_e, ds, h, buf_len):
+    """rx_power's float sweep (cuFFT) on the card against the CPU, at the
+    float tier's bound (rtol 1e-4, atol 1e-6 x the hop's peak)."""
+    from rx_tools_tpu_torch.models import powerscan
+    cfg = powerscan.PowerConfig(bin_e=bin_e, downsample=ds, window=window,
+                                buf_len=buf_len)
+    rng = np.random.default_rng(bin_e + h)
+    blocks = rng.integers(-9000, 9000, (h, buf_len)).astype(np.int16)
+    blocks[:, 0::2] += (8000 * np.cos(0.3 * np.arange(buf_len // 2))
+                        ).astype(np.int16)
+    acc = powerscan.new_sweep_accum(h, cfg, cuda)
+    cpu = powerscan.new_sweep_accum(h, cfg, "cpu")
+    for _ in range(2):
+        acc = powerscan.sweep_step(cfg, acc, blocks)
+        cpu = powerscan.sweep_step(cfg, cpu, blocks)
+    assert acc.avg.device.type == "cuda"
+    assert torch.equal(acc.samples.cpu(), cpu.samples)
+    got, want = acc.avg.cpu().numpy(), cpu.avg.numpy()
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-4,
+                                   atol=1e-6 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("window", ["rectangle", "hamming", "youssef"])
+@pytest.mark.parametrize("bin_e,ds,h,buf_len", [
+    (9, 1, 402, 16384),           # BASELINE config #5's sweep
+    (11, 1, 4, 2 * 2048 * 8),     # 2048 bins, 8 segments a hop
+    (5, 3, 6, 2 * 32 * 3 * 10),   # wrapping boxcar groups
+])
+def test_int_sweep_powers_card_bitwise(cuda, window, bin_e, ds, h, buf_len):
+    """The --int-fft tier on the card is the CPU's bit for bit."""
+    from rx_tools_tpu_torch.models import powerscan
+    cfg = powerscan.PowerConfig(bin_e=bin_e, downsample=ds, window=window,
+                                buf_len=buf_len)
+    rng = np.random.default_rng(bin_e * ds)
+    blocks = rng.integers(-32768, 32767, (h, buf_len)).astype(np.int16)
+    got = powerscan.int_sweep_powers(cfg, blocks, cuda)
+    want = powerscan.int_sweep_powers(cfg, blocks, "cpu")
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)

@@ -47,6 +47,13 @@ def test_import_leaves_jax_out():
             "import rx_tools_tpu_torch.stream.checkpoint\n"
             "import rx_tools_tpu_torch.stream.pipeline\n"
             "import rx_tools_tpu_torch.kernels.build\n"
+            "import rx_tools_tpu_torch.apps.rx_power\n"
+            "import rx_tools_tpu_torch.apps.rx_heatmap\n"
+            "import rx_tools_tpu_torch.models.powerscan\n"
+            "import rx_tools_tpu_torch.models.power_plan\n"
+            "import rx_tools_tpu_torch.ops.intfft\n"
+            "import rx_tools_tpu_torch.ops.spectrum\n"
+            "import rx_tools_tpu_torch.ops.windows\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'rx_tools_tpu.')) or m == 'rx_tools_tpu']\n"
             "assert not bad, bad\n")
@@ -91,6 +98,18 @@ def test_entry_points_refuse_cpu_fallback(no_cuda, tmp_path):
         rx_fm.main(["-f", "100.3M", "-M", "wbfm", "-d", "synth=fm",
                     "--blocks", "1", str(out)])
     assert not out.exists()
+    from rx_tools_tpu_torch.apps import rx_power
+    from rx_tools_tpu_torch.models import powerscan
+    pcfg = powerscan.PowerConfig(bin_e=6)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        powerscan.new_sweep_accum(3, pcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        powerscan.int_sweep_powers(pcfg, np.zeros((1, 16384), np.int16))
+    csv = tmp_path / "a.csv"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rx_power.main(["-f", "100M:102M:50k", "-1", "-d", "synth=tone",
+                       str(csv)])
+    assert not csv.exists()
 
 
 def test_kernel_wrappers_refuse_non_cuda_tensors():
