@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's rx_fm chains and rx_power on one CUDA card and
-check them.
+"""Drive the PyTorch port's rx_fm chains, rx_power and its I/Q sources on
+one CUDA card and check them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA card and the CUDA toolkit (nvcc); it builds the kernels from
@@ -65,9 +65,23 @@ Phases, in order:
    shape (16.8 M complex samples), with their rates, bounds and CUDA
    kernels a call, and config #5's CLI split into host read, device step
    and CSV flush;
-9. one JSON line listing every kernel entry point, then the result line.
+9. sources on the card (no kernel of their own; K1 runs behind each rx_fm
+   path): the port's native library and the fake SoapySDR
+   (``tests/fake_soapy.cpp``) built with g++ into ``build/``; the tensor
+   codecs on the card bit for bit against NumPy over all of int16 and
+   uint8; BASELINE config #1 (synth FM at 2.4 Msps) recorded by
+   ``rx_sdr`` as CU8, CS8, CS12 and CF32 files and demodulated by ``rx_fm
+   -M wbfm -s 2.4M``; ``rx_fm`` and ``rx_sdr`` from an rtl_tcp server on
+   localhost and from the fake device; one ``rx_power`` sweep from the
+   fake device (each rx_fm and rx_power run card vs CPU as in phases 7 and
+   8, the tone back, K1 launched); then rx_sdr's host conversion rate
+   (native codecs and NumPy), rx_fm's wall time on a 3 s CU8 capture of
+   config #1 with and without the ``Feeder`` readahead, and the same run
+   under ``RX_PROFILE`` with the trace's CUDA kernel time;
+10. one JSON line listing every kernel entry point, then the result line.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -87,6 +101,34 @@ FP32_OPS_PER_S = 67e12                # H100 SXM, float32 outside tensor cores
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+@contextlib.contextmanager
+def env_var(name, value):
+    """``os.environ[name] = value`` inside the block (``None``: unset)."""
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    """``obj.name = value`` inside the block."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
 
 
 def card_line():
@@ -188,16 +230,8 @@ def rx_power_phase(dev, counted, tmp):
     from rx_tools_tpu_torch.stream import checkpoint
 
     def run(args, name, cpu=False):
-        old = os.environ.get("RX_PLATFORM")
-        if cpu:
-            os.environ["RX_PLATFORM"] = "cpu"
-        try:
+        with env_var("RX_PLATFORM", "cpu" if cpu else None):
             rc = rx_power.main(args + [str(tmp / name)])
-        finally:
-            if old is None:
-                os.environ.pop("RX_PLATFORM", None)
-            else:
-                os.environ["RX_PLATFORM"] = old
         if rc != 0:
             fail(f"rx_power {' '.join(args)} exited {rc}")
         return csv_rows(tmp / name)
@@ -361,6 +395,296 @@ def rx_power_phase(dev, counted, tmp):
         print(json.dumps(rec))
         if not spans["step"]:
             fail(f"config #5 CLI {tier}: no sweep completed")
+
+
+class RtlTcpMock:
+    """The server side of the rtl_tcp protocol on localhost: the 12-byte
+    header, ``payload`` as the CU8 stream, EOF, then the 5-byte commands
+    the client sent are kept until it closes."""
+
+    def __init__(self, payload):
+        import socket
+        import threading
+        self.payload, self.commands = payload, []
+        self._lsock = socket.socket()
+        self._lsock.bind(("127.0.0.1", 0))
+        self._lsock.listen(1)
+        self.port = self._lsock.getsockname()[1]
+        self._thread = threading.Thread(target=self._serve, daemon=True)
+        self._thread.start()
+
+    def _serve(self):
+        import socket
+        import struct
+        conn, _ = self._lsock.accept()
+        conn.settimeout(30.0)
+        buf = b""
+        try:
+            conn.sendall(b"RTL0" + struct.pack(">II", 5, 29))
+            conn.sendall(self.payload)
+            conn.shutdown(socket.SHUT_WR)
+            while True:
+                chunk = conn.recv(4096)
+                if not chunk:
+                    break
+                buf += chunk
+        finally:
+            conn.close()
+            self._lsock.close()
+        self.commands = [struct.unpack(">BI", buf[i:i + 5])
+                         for i in range(0, len(buf) - 4, 5)]
+
+    def join(self):
+        self._thread.join(timeout=60)
+        if self._thread.is_alive():
+            fail("the rtl_tcp mock did not finish")
+
+
+def sources_phase(counted, tmp):
+    """Phase 9: every I/Q source and wire format into the card."""
+    import ctypes
+
+    import numpy as np
+    import torch
+    from rx_tools_tpu_torch import native
+    from rx_tools_tpu_torch.apps import rx_fm, rx_power, rx_sdr
+    from rx_tools_tpu_torch.iq import formats, soapy
+    from rx_tools_tpu_torch.native import build as native_build
+
+    # (a) the native library and the fake SoapySDR, two g++ at once
+    t_phase = t = time.perf_counter()
+    fake_lib = ROOT / "build" / "fake_soapy" / "libfakesoapy.so"
+    fake_lib.parent.mkdir(parents=True, exist_ok=True)
+    gxx = subprocess.Popen(["g++", "-shared", "-fPIC", "-O1", "-o",
+                            str(fake_lib), str(ROOT / "tests" /
+                                               "fake_soapy.cpp")])
+    try:
+        native_build.build()
+    finally:
+        rc = gxx.wait(timeout=300)
+    if rc != 0 or not native.available():
+        fail(f"g++ builds: fake SoapySDR rc {rc}, native library loaded "
+             f"{native.available()}")
+    lib = ctypes.CDLL(str(fake_lib))
+    soapy._bind(lib)
+    soapy._LIB, soapy._TRIED = lib, True
+    print(f"native library and fake SoapySDR built in "
+          f"{time.perf_counter() - t:.1f} s (g++)")
+
+    def numpy_path():
+        return patched(native, "_LIB", None)
+
+    # (b) the tensor codecs on the card against NumPy, all of int16 and
+    # uint8; the native codecs against NumPy (they differ only where the
+    # C's double narrowing leaves NumPy's float32, two CU8 inputs)
+    all16 = np.arange(-32768, 32768, dtype=np.int16)
+    u8 = np.arange(256, dtype=np.uint8)
+    rng = np.random.default_rng(21)
+    cases = {
+        "cs16_to_cs8": all16, "cs16_to_cu8": all16, "cs16_to_cf32": all16,
+        "cs16_rescale8": all16, "cs16_to_cs12": all16,
+        "cu8_to_cs16": u8, "cs8_to_cs16": u8.view(np.int8),
+        "cs12_to_cs16": rng.integers(0, 256, 3 << 20, dtype=np.uint8),
+        "cf32_to_cs16": np.concatenate([
+            all16 / np.float32(32767.0), (rng.standard_normal(1 << 20)
+                                          * 0.6).astype(np.float32)]),
+    }
+    native_off = {}
+    for name, x in cases.items():
+        fn = getattr(formats, name)
+        with numpy_path():
+            want = fn(x)
+        got = fn(torch.from_numpy(x.copy()).to("cuda"))
+        if got.device.type != "cuda" or not np.array_equal(got.cpu().numpy(),
+                                                           want):
+            fail(f"tensor codec {name} on the card differs from NumPy")
+        off = np.flatnonzero(fn(x) != want)         # numpy input: native
+        native_off[name] = x[off].tolist() if name == "cs16_to_cu8" \
+            else off.size
+    if native_off.pop("cs16_to_cu8") not in ([], [-13158, 19609]) or any(
+            native_off.values()):
+        fail(f"native codecs off NumPy beyond the known CU8 pair: "
+             f"{native_off}")
+    print(f"tensor codecs on the card: {len(cases)} bitwise against NumPy "
+          "(int16 and uint8 in full); the native codecs equal NumPy but at "
+          "CU8 inputs -13158 and 19609 (C double vs float32)")
+
+    # (c) BASELINE config #1 recorded by rx_sdr in four formats, then
+    # demodulated by rx_fm -M wbfm on the card and on the CPU.  The CLI's
+    # planner takes D = 1M // rate_in + 1, so 2.4 Msps reaches it as -s
+    # 2.4M (D = 1); phase 3 drives config #1's D = 14 geometry.
+    cfg1 = ("synth=fm,audio=1k,dev=75k,amp=0.8,noise=0.001,seed=7,"
+            f"carrier={STATION:.0f}")
+    tune = STATION + CAPTURE_RATE / 4 + 16e3    # where rx_fm -M wbfm tunes
+    wbfm = ["-f", f"{STATION:.0f}", "-M", "wbfm", "-s", "2.4M"]
+
+    def record(fmt, n, query=cfg1):
+        path = tmp / f"cfg1.{fmt.lower()}"
+        if rx_sdr.main(["-f", f"{tune:.0f}", "-s", "2.4M", "-d", query,
+                        "-n", str(n), "-F", fmt, str(path)]) != 0:
+            fail(f"rx_sdr -F {fmt} failed")
+        return path
+
+    def rx_fm_pcm(args, cpu):
+        out = tmp / ("cpu.raw" if cpu else "gpu.raw")
+        with env_var("RX_PLATFORM", "cpu" if cpu else None):
+            if rx_fm.main(args + [str(out)]) != 0:
+                fail(f"rx_fm {' '.join(args)} exited non-zero")
+        return np.fromfile(out, np.int16)
+
+    def fm_card_vs_cpu(what, args, tone=True, serve=None):
+        """rx_fm on the card (counted) and on the CPU: same count, at most
+        1 LSB, K1 launched; ``serve()`` gives the source's args anew."""
+        gpu, counts = counted(lambda: rx_fm_pcm(
+            args + (serve() if serve else []), cpu=False))
+        cpu = rx_fm_pcm(args + (serve() if serve else []), cpu=True)
+        if gpu.size != cpu.size or gpu.size < 4000:
+            fail(f"{what}: card {gpu.size} vs CPU {cpu.size} PCM samples")
+        lsb = int(np.abs(gpu.astype(int) - cpu.astype(int)).max())
+        hz = tone_hz(gpu) if tone else float("nan")
+        if lsb > 1 or counts["capture_frontend_mm_pallas"] <= 0 or (
+                tone and abs(hz - 1000.0) > 10):
+            fail(f"{what}: {lsb} LSB apart, tone {hz} Hz, launches {counts}")
+        print(f"{what}: {gpu.size} PCM samples, card vs CPU max |diff| {lsb}"
+              f" LSB, tone {hz:.1f} Hz, K1 launches "
+              f"{counts['capture_frontend_mm_pallas']}")
+
+    n_short = 600_000                               # 0.25 s of config #1
+    caps = {fmt: record(fmt, n_short) for fmt in ("CU8", "CS8", "CS12",
+                                                   "CF32")}
+    for fmt, path in caps.items():
+        fm_card_vs_cpu(f"config #1 {fmt} file (rx_sdr -F {fmt}, rx_fm)",
+                       wbfm + ["-d", f"file={path},format={fmt},rate=2.4M"])
+
+    # (d) an rtl_tcp server on localhost: rx_fm to its EOF, rx_sdr
+    cu8 = caps["CU8"].read_bytes()
+    mocks = []
+
+    def serve():
+        mocks.append(RtlTcpMock(cu8))
+        return ["-d", f"rtltcp=127.0.0.1:{mocks[-1].port}"]
+
+    fm_card_vs_cpu("rtl_tcp mock (rx_fm -M wbfm to EOF)", wbfm, serve=serve)
+    out = tmp / "tcp.cs16"
+    if rx_sdr.main(serve() + ["-f", "100M", "-n", str(n_short), "-F",
+                              "CS16", str(out)]) != 0:
+        fail("rx_sdr from the rtl_tcp mock failed")
+    for m in mocks:
+        m.join()
+    want = formats.cu8_to_cs16(np.frombuffer(cu8, np.uint8))
+    if not np.array_equal(np.fromfile(out, np.int16), want):
+        fail("rx_sdr from the rtl_tcp mock: bytes differ from the CU8 "
+             "stream widened")
+    if not all((1, int(tune)) in m.commands for m in mocks[:2]):
+        fail(f"rx_fm did not tune the rtl_tcp mock ({mocks[0].commands})")
+    print(f"rtl_tcp mock: rx_sdr -F CS16 = the stream widened "
+          f"({n_short} samples); rx_fm tuned the server to {tune:.0f} Hz")
+
+    # (e) the fake SoapySDR device (it never ends its stream: --blocks,
+    # -n): rx_fm, rx_sdr -I CS12 -F CS16, one rx_power sweep
+    fm_card_vs_cpu("fake SoapySDR device (rx_fm -M wbfm --blocks 64)",
+                   wbfm + ["-d", "driver=rtlsdr", "--blocks", "64"],
+                   tone=False)
+    if rx_sdr.main(["-d", "driver=rtlsdr,native=CS12", "-f", "100M", "-I",
+                    "CS12", "-F", "CS16", "-n", "65536", str(out)]) != 0:
+        fail("rx_sdr from the fake device failed")
+    k = np.arange(65536)
+    i12, q12 = k & 0xFFF, ~k & 0xFFF
+    wire = np.stack([i12 & 0xFF, ((i12 >> 8) & 0x0F) | ((q12 & 0x0F) << 4),
+                     (q12 >> 4) & 0xFF], -1).reshape(-1).astype(np.uint8)
+    if not np.array_equal(np.fromfile(out, np.int16),
+                          formats.cs12_to_cs16(wire)):
+        fail("rx_sdr -I CS12 -F CS16 from the fake device: not the unpack")
+
+    def power_rows(cpu):
+        path = tmp / ("cpu.csv" if cpu else "gpu.csv")
+        with env_var("RX_PLATFORM", "cpu" if cpu else None):
+            if rx_power.main(["-f", "100M:104M:50k", "-1", "-S", "0", "-d",
+                              "driver=rtlsdr", str(path)]) != 0:
+                fail("rx_power from the fake device failed")
+        return csv_rows(path)
+
+    gpu, _ = counted(lambda: power_rows(False))
+    worst = rows_agree("rx_power from the fake device", gpu,
+                       power_rows(True), exact=False)
+    print(f"fake SoapySDR device: rx_sdr -I CS12 -F CS16 = the wire unpack "
+          f"(65536 samples); rx_power {len(gpu)} rows, card vs CPU max |dB| "
+          f"{worst}")
+
+    # (f) timings on a 3 s CU8 capture of config #1 (the short one
+    # repeated).  rx_sdr's host conversion: formats.convert on its
+    # 131072-sample blocks of the capture widened to CS16, through the
+    # native codecs and NumPy, three passes each
+    big = tmp / "cfg1_3s.cu8"
+    reps = -(-3 * CAPTURE_RATE // n_short)
+    big.write_bytes(cu8 * reps)
+    seconds = reps * n_short / CAPTURE_RATE
+    cs16 = formats.cu8_to_cs16(np.fromfile(big, np.uint8))
+    blocks = [cs16[i:i + 262144] for i in range(0, cs16.size, 262144)]
+    rates = {}
+    for fmt in ("CU8", "CS8", "CS12", "CF32"):
+        for path, ctx in (("native", contextlib.nullcontext()),
+                          ("numpy", numpy_path())):
+            with ctx:
+                for _ in range(3):
+                    t = time.perf_counter()
+                    n_out = sum(len(formats.array_to_bytes(
+                        formats.convert(b, "CS16", fmt), fmt))
+                        for b in blocks)
+                    rates.setdefault(f"{fmt} {path}", []).append(
+                        n_out / (time.perf_counter() - t) / 1e6)
+    print(json.dumps({"rx_sdr host conversion": "CS16 -> format, MB/s out, "
+                      "three passes", "samples": cs16.size // 2,
+                      "mb_per_s": rates}))
+
+    # rx_fm on the 3 s capture with and without the Feeder readahead
+    # (alternated); then 1 s of it under RX_PROFILE
+    args = wbfm + ["-d", f"file={big},format=CU8,rate=2.4M"]
+    runs, pcm = {"feeder": [], "no feeder": []}, {}
+    for mode in ("feeder", "no feeder", "no feeder", "feeder"):
+        ctx = (patched(native, "Feeder", lambda *a, **kw: None)
+               if mode == "no feeder" else contextlib.nullcontext())
+        with ctx:
+            t = time.perf_counter()
+            pcm[mode], _ = counted(lambda: rx_fm_pcm(args, cpu=False))
+            runs[mode].append(time.perf_counter() - t)
+    if not np.array_equal(pcm["feeder"], pcm["no feeder"]):
+        fail("rx_fm's PCM differs with and without the Feeder")
+    print(json.dumps({"rx_fm config #1 CU8 file": f"{seconds:.2f} s of "
+                      "signal, -M wbfm -s 2.4M", "wall_s": runs,
+                      "realtime_multiple": {m: [seconds / w for w in v]
+                                            for m, v in runs.items()}}))
+    # (a 1 s capture: a trace holds every torch op, tens of MB a second)
+    one_s = tmp / "cfg1_1s.cu8"
+    one_s.write_bytes(cu8 * 4)
+    prof = tmp / "prof"
+    with env_var("RX_PROFILE", str(prof)):
+        t = time.perf_counter()
+        counted(lambda: rx_fm_pcm(wbfm + ["-d", f"file={one_s},format=CU8,"
+                                          "rate=2.4M"], cpu=False))
+        wall = time.perf_counter() - t
+    traces = list(prof.glob("rx_trace.*.json"))
+    if len(traces) != 1:
+        fail(f"RX_PROFILE wrote {len(traces)} traces")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X"]
+    by_cat = {}
+    for e in spans:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            by_cat[e["cat"]] = by_cat.get(e["cat"], 0.0) + e["dur"] / 1e3
+    if not by_cat.get("kernel"):
+        fail("the RX_PROFILE trace holds no CUDA kernel")
+    traced_ms = (max(e["ts"] + e["dur"] for e in spans)
+                 - min(e["ts"] for e in spans)) / 1e3
+    print(json.dumps({"RX_PROFILE rx_fm config #1 CU8 file": "1.00 s of "
+                      "signal; the runner's run traced (set-up and warmup "
+                      "outside)",
+                      "traced_ms": traced_ms, "cli_wall_s": wall,
+                      "device_ms": by_cat,
+                      "kernel_share_of_traced": by_cat["kernel"] / traced_ms,
+                      "trace_mb": traces[0].stat().st_size / 1e6}))
+    print(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
@@ -736,18 +1060,10 @@ def main():
 
     def cli(args, out, cpu=False):
         """``rx_fm`` on the card (or the CPU): (pcm, launches)."""
-        old = os.environ.get("RX_PLATFORM")
-        if cpu:
-            os.environ["RX_PLATFORM"] = "cpu"
-        try:
+        with env_var("RX_PLATFORM", "cpu" if cpu else None):
             reset_counts()
             rc = rx_fm.main(args + [str(out)])
             counts = {k: f.launches for k, f in counters.items()}
-        finally:
-            if old is None:
-                os.environ.pop("RX_PLATFORM", None)
-            else:
-                os.environ["RX_PLATFORM"] = old
         if rc != 0:
             fail(f"rx_fm {' '.join(args)} exited {rc}")
         if not cpu:
@@ -795,12 +1111,9 @@ def main():
         am = ["-f", "100M", "-M", "am", "-s", "24k", "-E", "dc", "-E",
               "offset", "-d", "synth=am,audio=600,amp=0.5,noise=0.001,"
               "seed=6,carrier=100.002M", "--blocks", "64"]
-        frontend_mxu._launch_head = recording
-        try:
+        with patched(frontend_mxu, "_launch_head", recording):
             pcm, counts = card_vs_cpu("config #3 (am -s 24k -E dc -E offset)",
                                       am, tmp)
-        finally:
-            frontend_mxu._launch_head = launch_head
         if counts["capture_frontend_mm_pallas"] <= 0 or not rotations \
                 or any(rotations):
             fail(f"config #3 did not launch K1 with rotate=False "
@@ -869,13 +1182,10 @@ def main():
             tunes.append(f)
             return set_freq(self, f)
 
-        sources.SynthSource.set_frequency = counting
-        try:
+        with patched(sources.SynthSource, "set_frequency", counting):
             pcm, counts = cli(["-f", "102.3M", "-f", "100.3M", "-M", "wbfm",
                                "-l", "20", "-d", wbfm_synth, "--blocks",
                                "64"], Path(tmp) / "scan.raw")
-        finally:
-            sources.SynthSource.set_frequency = set_freq
         hops = len(tunes) - 1
         hz = tone_hz(pcm) if pcm.size > 4000 else 0.0
         print(f"scanning: {hops} hop(s), {pcm.size} PCM samples, tone "
@@ -896,7 +1206,11 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         rx_power_phase(dev, counted, Path(tmp))
 
-    # ---- phase 9: the record ---------------------------------------------
+    # ---- phase 9: sources on the card --------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        sources_phase(counted, Path(tmp))
+
+    # ---- phase 10: the record ----------------------------------------------
     kern["int_deemph"] = deemph
     lines = []
     for name, k in kern.items():

@@ -1,7 +1,9 @@
 """Shared CLI plumbing: the ``convenience`` library re-imagined.
 
-Counterpart of :mod:`rx_tools_tpu.apps.common`, without its JAX hooks
-(device selection is ``rx_tools_tpu_torch.device``).  Replicates the
+Counterpart of :mod:`rx_tools_tpu.apps.common`.  Device selection is
+``rx_tools_tpu_torch.device`` (the JAX package's ``select_platform`` has no
+counterpart); ``RX_PROFILE`` takes a ``torch.profiler`` trace in place of
+a ``jax.profiler`` one.  Replicates the
 reference's L1 layer (``src/convenience/convenience.c``):
 ``verbose_*`` wrappers that log every device mutation to stderr, the gain
 string / kwargs parsers, and the stdout-suppression contract (stdout is the
@@ -10,6 +12,7 @@ data plane, stderr the log plane — ``convenience.c:447-466``).
 
 from __future__ import annotations
 
+import os
 import signal
 import sys
 
@@ -30,6 +33,38 @@ class suppress_stdout:
     def __exit__(self, *exc):
         from rx_tools_tpu_torch.utils.logging import suppress_stdout_stop
         suppress_stdout_stop(self._saved)
+        return False
+
+
+class maybe_profile:
+    """``RX_PROFILE=<dir>`` wraps the run in a ``torch.profiler`` trace of
+    the host and, where CUDA is available, the card; the Chrome trace is
+    written into the directory as ``rx_trace.<pid>.json``.  Unset, it does
+    nothing."""
+
+    def __init__(self):
+        self.dir = os.environ.get("RX_PROFILE")
+        self._prof = None
+
+    def __enter__(self):
+        if self.dir:
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(ProfilerActivity.CUDA)
+            os.makedirs(self.dir, exist_ok=True)
+            self._prof = profile(activities=acts)
+            self._prof.__enter__()
+            log("Profiling to %s", self.dir)
+        return self
+
+    def __exit__(self, *exc):
+        if self._prof is not None:
+            self._prof.__exit__(*exc)
+            self._prof.export_chrome_trace(
+                os.path.join(self.dir, f"rx_trace.{os.getpid()}.json"))
+            self._prof = None
         return False
 
 

@@ -10,7 +10,8 @@ through the chunked runner, or the per-block ``StreamRunner`` with ``-b
 Squelch-driven scanning over several ``-f`` retunes the source between
 blocks and mutes ``BUFFER_DUMP`` samples after each retune
 (``rtl_fm.c:839-843``); ``--checkpoint``/``--resume`` snapshot and restore
-the carried state in the reference package's format.
+the carried state in the reference package's format.  ``RX_PROFILE=<dir>``
+writes a ``torch.profiler`` trace of the run into ``<dir>``.
 
 Not yet ported: ``-E shard`` (offline time sharding over several devices)
 logs one line and exits 1; it waits for the port's ``parallel/`` slice.
@@ -545,7 +546,8 @@ def main(argv=None) -> int:
             int(resume_meta["blocks"]), int(resume_meta["samples_in"]),
             int(resume_meta["samples_out"]))
     try:
-        stats = runner.run(max_blocks=max_blocks)
+        with common.maybe_profile():
+            stats = runner.run(max_blocks=max_blocks)
     finally:
         _close(src, out)
     if verbosity:

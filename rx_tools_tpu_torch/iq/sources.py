@@ -9,10 +9,16 @@ blocks, negative counts for soft errors (``src/rtl_sdr.c:333-337``).
 - ``-d stdin[,format=CU8]``                             — pipe from stdin.
 - ``-d synth=fm[,audio=1k][,dev=75k][,snr=...]``        — synthetic signals,
   sample for sample the reference package's generator.
+- ``-d rtltcp=host[:port]``                             — remote hardware
+  over the rtl_tcp network protocol (iq/rtltcp.py).
+- ``-d driver=<name>[,...]``                            — a SoapySDR device
+  through libSoapySDR (iq/soapy.py).
 - ``""`` (empty, the reference default)                 — synthetic noise.
 
-SoapySDR hardware (``driver=``) and rtl_tcp (``rtltcp=``) are not yet
-ported and raise.
+Every source is host code: it yields numpy blocks, and a runner copies
+them to the device.  Files of every wire format are widened to CS16 by
+:mod:`rx_tools_tpu_torch.iq.formats` (the native codecs when built), read
+ahead by the native ``Feeder`` thread when the library is built.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from rx_tools_tpu_torch.utils.units import atofs, parse_kwargs
 
 #: readStream soft error codes (SoapySDR convention)
 ERR_OVERFLOW = -4
+ERR_TIMEOUT = -1
 
 
 class Source:
@@ -153,7 +160,18 @@ class FileSource(Source):
         self._data_start = 0        # loop mode rewinds here (past WAV header)
         if not params.format_pinned:
             self._probe_wav(params)
-        formats.require_readable(self._fmt)
+        # native readahead feeder (the dongle-thread analog): lossless
+        # backpressure mode; skipped for stdin (fd lifetime) and loop mode
+        # (feeder cannot seek)
+        self._feeder = None
+        if (params.path != "-" and not params.loop):
+            from rx_tools_tpu_torch import native
+            if native.available():
+                elem = formats.ELEM_BYTES[self._fmt]
+                block = max(elem * 16384, 65536)
+                self._feeder = native.Feeder(self._f.fileno(),
+                                             block - block % elem,
+                                             depth=8, drop_on_full=False)
 
     def _probe_wav(self, params: _FileParams) -> None:
         """Auto-detect a RIFF/WAVE capture (rx_fm -E wav / rtl_fm
@@ -171,7 +189,10 @@ class FileSource(Source):
             if info is None:
                 self._pending = consumed   # replay the probed bytes
             return
-        # reopen at the data offset so the loop-mode rewind point is exact
+        # Reopen at the data offset: BufferedReader.seek satisfies small
+        # seeks inside its readahead buffer WITHOUT moving the raw fd, and
+        # the native feeder reads the raw fd — a fresh reader's first seek
+        # is a real lseek, so both the buffered and raw positions agree.
         pos = self._f.tell() if info is not None else 0
         self._f.close()
         self._f = open(params.path, "rb")
@@ -180,6 +201,13 @@ class FileSource(Source):
 
     def _read_bytes(self, need: int) -> bytes:
         buf = self._pending
+        if self._feeder is not None:
+            while len(buf) < need:
+                blk = self._feeder.read_block()
+                if blk is None:
+                    break
+                buf += blk.tobytes()
+            return buf
         while len(buf) < need:
             chunk = self._f.read(need - len(buf))
             if not chunk:
@@ -199,9 +227,14 @@ class FileSource(Source):
         self._pending = buf[n * elem:]
         if n == 0:
             return 0, np.empty(0, np.int16)
-        return n, formats.bytes_to_cs16(buf[: n * elem], self._fmt)
+        raw = formats.bytes_to_array(buf[: n * elem], self._fmt)
+        cs16 = formats.convert(raw, self._fmt, "CS16")
+        return n, np.asarray(cs16, dtype=np.int16)
 
     def close(self) -> None:
+        if self._feeder is not None:
+            self._feeder.close()
+            self._feeder = None
         if self._f is not sys.stdin.buffer:
             self._f.close()
 
@@ -361,9 +394,17 @@ def make_source(query: str | dict, wire_format: str = "CS16") -> Source:
         return FileSource(p)
     if "synth" in kw or kw.get("driver") == "synth":
         return SynthSource(kw)
-    if ("rtltcp" in kw or kw.get("driver") == "rtltcp" or "driver" in kw):
-        raise NotImplementedError(
-            "hardware sources (SoapySDR driver=, rtltcp=) are not yet ported")
+    if "rtltcp" in kw or kw.get("driver") == "rtltcp":
+        # network hardware path: rtl_tcp protocol client (iq/rtltcp.py)
+        from rx_tools_tpu_torch.iq import rtltcp
+        return rtltcp.RtlTcpSource(kw)
+    if "driver" in kw:
+        # hardware path: SoapySDR by driver query, exactly like the
+        # reference's -d driver=rtlsdr (convenience.c:469-489)
+        from rx_tools_tpu_torch.iq import soapy
+        qstr = query if isinstance(query, str) else ",".join(
+            f"{k}={v}" for k, v in kw.items())
+        return soapy.SoapySource(qstr, wire_format=wire_format)
     # reference default: empty query = first available device
     return SynthSource({"synth": "noise", **kw})
 

@@ -253,3 +253,37 @@ def test_int_sweep_powers_card_bitwise(cuda, window, bin_e, ds, h, buf_len):
     want = powerscan.int_sweep_powers(cfg, blocks, "cpu")
     assert got.device.type == "cuda" and got.dtype == torch.int32
     assert torch.equal(got.cpu(), want)
+
+
+def _codec_inputs():
+    rng = np.random.default_rng(12)
+    all16 = np.arange(-32768, 32768, dtype=np.int16)
+    u8 = np.arange(256, dtype=np.uint8)
+    return {
+        "cs16_to_cs8": all16, "cs16_to_cu8": all16, "cs16_to_cf32": all16,
+        "cs16_rescale8": all16, "cs16_to_cs12": all16,
+        "cu8_to_cs16": u8, "cs8_to_cs16": u8.view(np.int8),
+        "cs12_to_cs16": rng.integers(0, 256, 3 * 40000, dtype=np.uint8),
+        "cf32_to_cs16": np.concatenate([
+            (rng.standard_normal(100000) * 0.6).astype(np.float32),
+            ((np.arange(-500, 500) + 0.5) / np.float32(32767.0)).astype(
+                np.float32),
+            np.array([1.5, -1.5, 1.0, -1.0, 0.0], np.float32)]),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_codec_inputs()))
+def test_tensor_codecs_card_bitwise(cuda, name, monkeypatch):
+    """The wire-format codecs on CUDA tensors are the NumPy path's bit for
+    bit (division IEEE on the card, integer stores wrapped), over all of
+    int16 and uint8 where the codec takes them."""
+    from rx_tools_tpu_torch import native
+    from rx_tools_tpu_torch.iq import formats
+    monkeypatch.setattr(native, "_LIB", None)     # numpy arrays: NumPy path
+    monkeypatch.setattr(native, "_TRIED", True)
+    x = _codec_inputs()[name]
+    fn = getattr(formats, name)
+    got = fn(torch.from_numpy(x.copy()).to(cuda))
+    want = fn(x)
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(), want)

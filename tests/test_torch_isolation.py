@@ -54,6 +54,10 @@ def test_import_leaves_jax_out():
             "import rx_tools_tpu_torch.ops.intfft\n"
             "import rx_tools_tpu_torch.ops.spectrum\n"
             "import rx_tools_tpu_torch.ops.windows\n"
+            "import rx_tools_tpu_torch.apps.rx_sdr\n"
+            "import rx_tools_tpu_torch.iq.formats, rx_tools_tpu_torch.iq.rtltcp\n"
+            "import rx_tools_tpu_torch.iq.soapy, rx_tools_tpu_torch.native\n"
+            "import rx_tools_tpu_torch.native.build\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'rx_tools_tpu.')) or m == 'rx_tools_tpu']\n"
             "assert not bad, bad\n")
@@ -110,6 +114,24 @@ def test_entry_points_refuse_cpu_fallback(no_cuda, tmp_path):
         rx_power.main(["-f", "100M:102M:50k", "-1", "-d", "synth=tone",
                        str(csv)])
     assert not csv.exists()
+
+
+def test_rx_sdr_needs_no_device(no_cuda, tmp_path):
+    """rx_sdr converts numpy on the host: it runs without CUDA and without
+    RX_PLATFORM, and its bytes are the host conversion of the synth (read
+    in the same size: the synth's noise draws follow its reads)."""
+    from rx_tools_tpu_torch.apps import rx_sdr
+    from rx_tools_tpu_torch.iq import formats
+    from rx_tools_tpu_torch.iq.sources import make_source
+    out = tmp_path / "cap.cu8"
+    assert rx_sdr.main(["-f", "100M", "-s", "2.4M", "-d", "synth=fm",
+                        "-n", "5000", "-b", "10000", "-F", "CU8",
+                        str(out)]) == 0
+    src = make_source("synth=fm")
+    src.set_sample_rate(2.4e6)
+    src.set_frequency(100e6)
+    want = formats.cs16_to_cu8(src.read_stream(5000)[1])
+    assert out.read_bytes() == want.tobytes()
 
 
 def test_kernel_wrappers_refuse_non_cuda_tensors():

@@ -2,6 +2,8 @@
 (modelled on tests/test_apps.py:60-80), and its sources against the
 reference's."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -139,3 +141,19 @@ def test_baseline_config_matches_reference_cli(flags, synth, rate, tmp_path):
     pcm = np.fromfile(out, np.int16)
     assert pcm.size == want.size > 2000
     assert np.abs(pcm.astype(int) - want.astype(int)).max() <= 1
+
+
+def test_rx_profile_writes_a_trace(tmp_path, monkeypatch):
+    """RX_PROFILE=<dir> wraps the run in a torch.profiler trace (the JAX
+    CLI's jax.profiler hook, apps/common.py:48-68), written into <dir>."""
+    prof = tmp_path / "prof"
+    monkeypatch.setenv("RX_PROFILE", str(prof))
+    out = tmp_path / "o.raw"
+    assert rx_fm.main(["-f", "100.3M", "-M", "wbfm", "-d", SYNTH,
+                       "--blocks", "4", str(out)]) == 0
+    assert out.stat().st_size > 0
+    traces = list(prof.glob("rx_trace.*.json"))
+    assert len(traces) == 1 and traces[0].stat().st_size > 0
+    with open(traces[0]) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert any(n.startswith("aten::") for n in names)
