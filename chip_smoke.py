@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's rx_fm chains, rx_power and its I/Q sources on
-one CUDA card and check them.
+"""Drive the PyTorch port's rx_fm chains, rx_power, its I/Q sources and
+rx_channels on one CUDA card and check them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA card and the CUDA toolkit (nvcc); it builds the kernels from
@@ -78,7 +78,26 @@ Phases, in order:
    (native codecs and NumPy), rx_fm's wall time on a 3 s CU8 capture of
    config #1 with and without the ``Feeder`` readahead, and the same run
    under ``RX_PROFILE`` with the trace's CUDA kernel time;
-10. one JSON line listing every kernel entry point, then the result line.
+10. rx_channels (no hand-written kernel on its path: the reference
+    package's channelizers reach no Pallas kernel; their products are
+    cuBLAS float32, the PFB's FFT form cuFFT), each CLI run on the card and
+    then on the CPU from one seeded synth scene (eight FM stations with 1
+    kHz tones on the 64-channel grid of a 2.4 Msps capture, recorded once
+    by ``rx_sdr`` to a CS16 file): ``-n 64 -M fm
+    -A fast -c us -r 32k`` (BASELINE.md:34's configuration, time-major),
+    ``-k`` with the eight stations at ``-D 16`` in both engines, ``-M raw``
+    on the PFB (channel-major); the same file names, per channel the same
+    count and at most 1 LSB apart, the tone back on each station's channel;
+    ``RX_CHANNELS_CHUNK=1`` against chunked dispatch, identical bytes on the
+    card.  Then, with CUDA events at bench.py's geometries,
+    ``pfb_step_tmaj`` (D = 64, 524288-sample blocks) and
+    ``channelize_step_tmaj`` (64 offsets, D = 16, 131072-sample blocks):
+    ms a step, GB/s of int16 in, channel-realtime equivalents, byte bound,
+    the host's enqueue time a step, CUDA kernels a step and the sum of
+    their device times (``torch.profiler``); and ``rx_channels -n 64``'s
+    wall time on 3.28 s of the scene (the recording repeated), chunked and
+    per-block;
+11. one JSON line listing every kernel entry point, then the result line.
 """
 
 import contextlib
@@ -202,6 +221,14 @@ def cuda_kernels_per_call(fn, args):
     """CUDA kernels one call launches, from a ``torch.profiler`` trace
     (copies and fills not counted); None when the profiler cannot trace
     the card or the trace has no device events."""
+    return cuda_kernel_profile(fn, args)[0]
+
+
+def cuda_kernel_profile(fn, args):
+    """``(kernels, kernel_ms)`` of one call from a ``torch.profiler`` trace:
+    the CUDA kernels it launches (copies and fills not counted) and the sum
+    of their device times; ``(None, None)`` when the trace has no device
+    events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     try:
@@ -211,11 +238,13 @@ def cuda_kernels_per_call(fn, args):
             torch.cuda.synchronize()
     except RuntimeError as e:
         print(f"torch.profiler could not trace the card: {e}")
-        return None
+        return None, None
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
-    return len(kernels) if dev else None
+    if not dev:
+        return None, None
+    return len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3
 
 
 def rx_power_phase(dev, counted, tmp):
@@ -685,6 +714,173 @@ def sources_phase(counted, tmp):
                       "kernel_share_of_traced": by_cat["kernel"] / traced_ms,
                       "trace_mb": traces[0].stat().st_size / 1e6}))
     print(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
+
+# phase 10's scene: eight FM stations on the 64-channel grid of a 2.4 Msps
+# capture at 98 MHz (channel k at 98 MHz + k * 37.5 kHz), each with a 1 kHz
+# tone; 10 kHz deviation keeps each inside its channel
+CH_CENTER = 98_000_000
+CH_STATIONS = [CH_CENTER + k * 37_500 for k in (-29, -22, -13, -5, 3, 9, 17,
+                                                 26)]
+CH_SCENE = ("synth=fm,det=1,seed=11,audio=1k,dev=10k,amp=0.08,noise=0.001,"
+            "carrier=" + "|".join(str(f) for f in CH_STATIONS))
+
+
+def channels_phase(counted, tmp, timing=True):
+    """Phase 10: rx_channels on the card against the CPU, then timings."""
+    import numpy as np
+    import torch
+    from rx_tools_tpu_torch.apps import rx_channels, rx_sdr
+    from rx_tools_tpu_torch.kernels.timing import time_ms
+    from rx_tools_tpu_torch.models import channelizer, pfb
+
+    t_phase = time.perf_counter()
+    base = ["-f", str(CH_CENTER), "-s", "2.4M"]
+    pfb64 = base + ["-n", "64", "-M", "fm", "-A", "fast", "-c", "us", "-r",
+                    "32k"]
+    mixer = base + ["-k", ",".join(str(f) for f in CH_STATIONS), "-D", "16",
+                    "-M", "fm", "-A", "fast", "-c", "us", "-r", "32k"]
+
+    def run(args, name, cpu=False, env=()):
+        out = tmp / name
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(env_var("RX_PLATFORM", "cpu" if cpu
+                                        else None))
+            for k, v in env:
+                stack.enter_context(env_var(k, v))
+            rc = rx_channels.main(args + [str(out)])
+        if rc != 0:
+            fail(f"rx_channels {' '.join(args)} exited {rc}")
+        return {p.name: np.fromfile(p, np.int16)
+                for p in sorted(out.glob("ch*.s16"))}
+
+    def card_vs_cpu(what, args, env=(), tone=True):
+        t = time.perf_counter()
+        gpu, counts = counted(lambda: run(args, f"{what}-gpu", env=env))
+        gpu_s = time.perf_counter() - t
+        cpu = run(args, f"{what}-cpu", cpu=True, env=env)
+        if list(gpu) != list(cpu) or not gpu:
+            fail(f"{what}: file names differ ({len(gpu)} vs {len(cpu)})")
+        lsb = {}
+        for name, g in gpu.items():
+            c = cpu[name]
+            if g.size != c.size or g.size < 4000:
+                fail(f"{what} {name}: card {g.size} vs CPU {c.size} samples")
+            lsb[name] = int(np.abs(g.astype(int) - c.astype(int)).max())
+        worst = max(lsb.values())
+        if worst > 1:
+            fail(f"{what}: card and CPU differ by more than 1 LSB: "
+                 f"{ {k: v for k, v in lsb.items() if v > 1} }")
+        tones = {}
+        if tone:
+            for f in CH_STATIONS:
+                hits = [n for n in gpu if n.endswith(f"_{f}.s16")]
+                if len(hits) != 1:
+                    fail(f"{what}: no single channel file for {f} Hz")
+                tones[f] = tone_hz(gpu[hits[0]], skip=4000)
+            off = {f: hz for f, hz in tones.items() if abs(hz - 1000.0) > 10}
+            if off:
+                fail(f"{what}: tone not recovered on {off}")
+        print(f"{what}: {len(gpu)} channels x {next(iter(gpu.values())).size}"
+              f" PCM samples, card vs CPU max |diff| {worst} LSB, card run "
+              f"{gpu_s:.2f} s, tones "
+              f"{sorted(set(round(v, 1) for v in tones.values()))} Hz, "
+              f"launches {counts}")
+        return gpu
+
+    # (a) the CLI: PFB at BASELINE.md:34's configuration (time-major), the
+    # mixer in both engines, raw on the PFB's channel-major engine, and
+    # chunked dispatch against per-block on the card; every run reads one
+    # recording of the scene (six 131072-sample blocks, 0.33 s), so the
+    # host synthesises it once
+    block = 131072
+    scene = tmp / "scene.cs16"
+    if rx_sdr.main(["-f", str(CH_CENTER), "-s", "2.4M", "-d", CH_SCENE, "-n",
+                    str(6 * block), "-F", "CS16", str(scene)]) != 0:
+        fail("rx_sdr could not record the phase 10 scene")
+    src = ["-d", f"file={scene},format=CS16,rate=2.4M"]
+    card_vs_cpu("rx_channels -n 64 (tmaj)", pfb64 + src)
+    card_vs_cpu("rx_channels -k x8 -D 16 (tmaj)", mixer + src)
+    card_vs_cpu("rx_channels -k x8 -D 16 (RX_MIXER=cm)", mixer + src,
+                env=[("RX_MIXER", "cm")])
+    card_vs_cpu("rx_channels -n 64 -M raw (cm)",
+                base + ["-n", "64", "-M", "raw", "-e", "0.05"] + src,
+                tone=False)
+    chunked = run(pfb64 + src, "chunked")
+    per_block = run(pfb64 + src, "per-block",
+                    env=[("RX_CHANNELS_CHUNK", "1")])
+    if list(chunked) != list(per_block) or any(
+            not np.array_equal(chunked[k], per_block[k]) for k in chunked):
+        fail("RX_CHANNELS_CHUNK=1 differs from chunked dispatch on the card")
+    print(f"RX_CHANNELS_CHUNK=1 vs chunked dispatch on the card: identical "
+          f"bytes in all {len(chunked)} channels")
+    if not timing:
+        return
+
+    # (b) timings at bench.py's geometries (bench.py:280-288, 328-340),
+    # CUDA events over 5 distinct input blocks, state threaded
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rng = np.random.default_rng(5)
+    offs = tuple(float(v) for v in rng.choice(
+        np.arange(-1_100_000, 1_100_000, 1000), 64, replace=False))
+    for name, cfg, nb, init, step in (
+            ("pfb_step_tmaj", pfb.PfbConfig(
+                capture_rate=CAPTURE_RATE, n_channels=64, custom_atan=1,
+                deemph_a=7, rate_out2=AUDIO_RATE), 524288,
+             pfb.init_state_tmaj, pfb.pfb_step_tmaj),
+            ("channelize_step_tmaj", channelizer.ChannelizerConfig(
+                capture_rate=CAPTURE_RATE, offsets=offs, downsample=16,
+                mode="fm", custom_atan=1, deemph_a=7, rate_out2=AUDIO_RATE),
+             131072, channelizer.init_state_tmaj,
+             channelizer.channelize_step_tmaj)):
+        blocks = [(torch.randint(-16000, 16000, (2 * nb,), generator=gen,
+                                 device=dev, dtype=torch.int32)
+                   .to(torch.int16),) for _ in range(5)]
+        holder = [init(cfg, dev)]
+
+        def fn(blk, cfg=cfg, step=step, holder=holder):
+            holder[0], audio, nv = step(cfg, holder[0], blk)
+            return audio, nv
+
+        ms = time_ms(fn, blocks, rounds=5, iters=20)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):          # under the launch queue's depth
+            fn(*blocks[0])
+        host_ms = (time.perf_counter() - t) * 1e3 / 5  # enqueue, no sync
+        torch.cuda.synchronize()
+        kernels, kernel_ms = cuda_kernel_profile(fn, blocks[0])
+        audio, _ = fn(*blocks[0])
+        out_bytes = audio.numel() * 4 + 4
+        bound_ms, bound_by = bound(4 * nb + out_bytes, 0)
+        gbs = 4 * nb / (ms * 1e-3) / 1e9
+        print(json.dumps({
+            "rx_channels step": name, "block_samples": nb, "channels": 64,
+            "ms": ms, "gb_per_s_int16_in": gbs,
+            "channel_rt_equiv": gbs * 1e9 / 4.0 / CAPTURE_RATE * 64,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "host_enqueue_ms": host_ms, "cuda_kernels_per_step": kernels,
+            "kernel_ms_per_step": kernel_ms}))
+        del blocks, holder
+
+    # rx_channels -n 64 on 3.28 s of signal: the recording ten times over
+    cap = tmp / "scene_3s.cs16"
+    reps = 10
+    cap.write_bytes(scene.read_bytes() * reps)
+    seconds = reps * 6 * block / CAPTURE_RATE
+    src = ["-d", f"file={cap},format=CS16,rate=2.4M"]
+    walls = {}
+    for chunk in ("8", "1", "1", "8"):
+        t = time.perf_counter()
+        counted(lambda: run(pfb64 + src, f"wall{chunk}",
+                            env=[("RX_CHANNELS_CHUNK", chunk)]))
+        walls.setdefault(f"RX_CHANNELS_CHUNK={chunk}", []).append(
+            time.perf_counter() - t)
+    print(json.dumps({"rx_channels -n 64 CS16 file": f"{seconds:.2f} s of "
+                      "signal, -M fm -A fast -c us -r 32k", "wall_s": walls,
+                      "realtime_multiple": {k: [seconds / w for w in v]
+                                            for k, v in walls.items()}}))
+    print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
@@ -1210,7 +1406,11 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         sources_phase(counted, Path(tmp))
 
-    # ---- phase 10: the record ----------------------------------------------
+    # ---- phase 10: rx_channels -------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        channels_phase(counted, Path(tmp))
+
+    # ---- phase 11: the record ----------------------------------------------
     kern["int_deemph"] = deemph
     lines = []
     for name, k in kern.items():

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from rx_tools_tpu_torch.apps import common
+from rx_tools_tpu_torch.apps.common import multi_process_env
 from rx_tools_tpu_torch.device import resolve_device
 from rx_tools_tpu_torch.models import powerscan
 from rx_tools_tpu_torch.models.power_plan import plan_sweep, describe_plan
@@ -90,19 +91,6 @@ CSV FFT output columns:
 def usage():
     sys.stderr.write(USAGE + "\n")
     raise SystemExit(1)
-
-
-def multi_process_env() -> bool:
-    """True when the environment configures a job of more than one
-    process, by the variables the reference package's
-    ``parallel/multihost.py`` reads: a coordinator address or a pod's
-    worker list, unless ``JAX_NUM_PROCESSES`` says 1."""
-    env = os.environ
-    configured = bool(env.get("JAX_COORDINATOR_ADDRESS")
-                      or "," in env.get("TPU_WORKER_HOSTNAMES", "")
-                      or env.get("MEGASCALE_COORDINATOR_ADDRESS"))
-    n = env.get("JAX_NUM_PROCESSES", "").strip()
-    return configured and not (n.isdigit() and int(n) <= 1)
 
 
 def main(argv=None) -> int:

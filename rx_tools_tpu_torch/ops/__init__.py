@@ -6,7 +6,9 @@ memory passed explicitly as a small carried state (a NamedTuple of
 tensors) — the same contract as :mod:`rx_tools_tpu.ops`.  The capture-rate
 stages of the boxcar path are CUDA kernels (``frontend_mxu``,
 ``pallas_frontend``, ``fused_frontend``), and so is the integer tier's
-de-emphasis (``intaudio``).  rx_power's ops (``windows``, ``spectrum``,
+de-emphasis (``intaudio``).  The channelizers' batched tail ops
+(``fm_discriminate_batch*``, ``deemph_filter(..., axis=-1)``,
+``resample_rational_batch``) take a ``(C, M)`` channel stack.  rx_power's ops (``windows``, ``spectrum``,
 ``intfft``) are plain torch: the float tier's FFT is ``torch.fft`` (cuFFT
 on the card), the ``--int-fft`` tier int32 arithmetic.
 """
@@ -23,6 +25,7 @@ from rx_tools_tpu_torch.ops.demods import am_demod, usb_demod, lsb_demod
 from rx_tools_tpu_torch.ops.discriminators import (
     polar_discriminant, fast_atan2, polar_disc_fast, polar_disc_lut,
     esbensen_disc, fm_discriminate, fm_discriminate_planar, disc_mode,
+    fm_discriminate_batch, fm_discriminate_batch_planar,
     DISC_STD, DISC_FAST, DISC_LUT, DISC_ALE,
 )
 from rx_tools_tpu_torch.ops.filters import (
@@ -34,7 +37,8 @@ from rx_tools_tpu_torch.ops.pallas_frontend import (
     capture_frontend_planar,
 )
 from rx_tools_tpu_torch.ops.resample import (
-    resample_rational, resample_sinc, ResampleState, SincResampleState,
+    resample_rational, resample_rational_batch, resample_sinc, ResampleState,
+    SincResampleState,
 )
 from rx_tools_tpu_torch.ops.windows import window, window_coefs_int, WINDOWS
 from rx_tools_tpu_torch.ops.spectrum import (

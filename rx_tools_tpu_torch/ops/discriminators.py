@@ -172,6 +172,39 @@ def fm_discriminate_planar(prev: torch.Tensor, zi: torch.Tensor,
     return torch.stack([zi[-1], zq[-1]]), d
 
 
+def fm_discriminate_batch_planar(prev: torch.Tensor, zi: torch.Tensor,
+                                 zq: torch.Tensor, mode: int):
+    """Planar discriminator over a channel stack: ``zi``/``zq`` (C, M),
+    ``prev`` (C, 2) each channel's carried previous sample.  Returns
+    ``(new_prev (C, 2), d (C, M))`` with one std-atan seam per channel at
+    column 0 (rtl_fm.c:588-590)."""
+    ar, aj = zi, zq
+    br = torch.cat([prev[:, 0:1], zi[:, :-1]], dim=1)
+    bj = torch.cat([prev[:, 1:2], zq[:, :-1]], dim=1)
+    cr = ar * br + aj * bj
+    cj = aj * br - ar * bj
+    if mode == DISC_STD:
+        d = polar_discriminant(cr, cj)
+    elif mode in (DISC_FAST, DISC_LUT, DISC_ALE):
+        if mode == DISC_FAST:
+            d = polar_disc_fast(cr, cj)
+        elif mode == DISC_LUT:
+            d = polar_disc_lut(*_lut_products(ar, aj, br, bj))
+        else:
+            d = esbensen_disc(ar, aj, br, bj)
+        d[:, 0] = polar_discriminant(cr[:, 0], cj[:, 0])
+    else:
+        raise ValueError(f"bad discriminator mode {mode}")
+    return torch.stack([zi[:, -1], zq[:, -1]], dim=-1), d
+
+
+def fm_discriminate_batch(prev: torch.Tensor, x: torch.Tensor, mode: int):
+    """Interleaved form over a channel stack: ``x`` (C, M, 2).  Returns
+    ``(new_prev (C, 2), d (C, M))``."""
+    _, d = fm_discriminate_batch_planar(prev, x[..., 0], x[..., 1], mode)
+    return x[:, -1, :], d
+
+
 def fm_discriminate(prev: torch.Tensor, x: torch.Tensor, mode: int,
                     seam_stride: int | None = None):
     """Interleaved form: ``x`` (N, 2).  Returns ``(new_prev, d (N,))``."""

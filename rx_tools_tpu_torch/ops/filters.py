@@ -9,7 +9,9 @@ Counterpart of :mod:`rx_tools_tpu.ops.filters`.
   reference: the blocked Hillis-Steele scan (:func:`_iir_scan_flat`, the
   CPU form) and one triangular float32 matrix product per 128-sample row
   plus a row-carry scan (:func:`_iir_scan_flat_mxu`, the CUDA form —
-  one pass over the data instead of log2(block) passes).
+  one pass over the data instead of log2(block) passes).  A (C, M)
+  channel stack scans along its minor axis in the same two forms
+  (:func:`_iir_scan_batch_mxu` on the card when M %% 128 == 0).
 - :func:`dc_block_audio` — block-mean DC removal with exponential
   smoothing across blocks (``rtl_fm.c:684-697``); :func:`dc_block_raw`
   is its twin on raw I/Q before demodulation (``rtl_fm.c:699-721``).
@@ -117,19 +119,54 @@ def deemph_mxu_path(device: torch.device) -> bool:
     return _MXU_FORCE or torch.device(device).type == "cuda"
 
 
-def deemph_filter(avg, x, deemph_a: int):
-    """(carry, block) -> (carry, block) one-pole IIR over a flat (N,)
-    stream, parallel-scan form."""
-    if x.dim() != 1:
-        raise NotImplementedError(
-            "deemph_filter over a channel stack belongs to the channelizer "
-            "slice; pass a flat (N,) stream")
+def _iir_scan_batch_mxu(avg, b, c: float, lanes: int = 128):
+    """Batched (C, M) minor-axis scan via the triangular float32 matmul
+    (M %% lanes == 0): the stack reshapes row-major to (C*M/lanes, lanes)
+    with every row inside one channel, and the row-carry scan runs per
+    channel over the (C, M/lanes) row-end grid."""
+    cdim, m = b.shape
+    rows = m // lanes
+    dev = b.device
+    s_in = (b.reshape(cdim * rows, lanes)
+            @ device_const(_scan_matrix, lanes, float(c), device=dev))
+    cl = float(c) ** lanes
+    ends_scan = _iir_row_scan(s_in[:, -1].reshape(cdim, rows), cl)  # (C, R)
+    car = (torch.cat([torch.zeros((cdim, 1), dtype=b.dtype, device=dev),
+                      ends_scan[:, :-1]], dim=1)
+           + device_const(_powers, cl, 0, rows, device=dev)[None, :]
+           * avg[:, None])                                        # (C, R)
+    cvec = device_const(_powers, float(c), 1, lanes + 1, device=dev)
+    y = (s_in.reshape(cdim, rows, lanes)
+         + car[:, :, None] * cvec[None, None, :]).reshape(cdim, m)
+    return y[:, -1], y
+
+
+def deemph_filter(avg, x, deemph_a: int, axis: int = 0):
+    """(carry, block) -> (carry, block) one-pole IIR, parallel-scan form.
+
+    ``axis`` selects the time axis: 0 for a flat (N,) stream, -1/1 for a
+    batched (C, N) channel stack (``avg`` then has shape (C,))."""
+    if x.dim() > 1 and axis not in (-1, 1):
+        # the scans run along the minor axis; a 2-D input with axis=0
+        # would silently compute the wrong recurrence
+        raise ValueError(
+            f"deemph_filter on a {x.dim()}-D input scans the minor axis; "
+            f"got axis={axis} (transpose the input or pass axis=-1)")
     inv_a = float(1.0 / deemph_a)
     c = 1.0 - inv_a
     b = x * _f32(inv_a)
-    if deemph_mxu_path(x.device):
-        return _iir_scan_flat_mxu(avg, b, c)
-    return _iir_scan_flat(avg, b, c)
+    if x.dim() == 1:
+        if deemph_mxu_path(x.device):
+            return _iir_scan_flat_mxu(avg, b, c)
+        return _iir_scan_flat(avg, b, c)
+    # batched (C, M): the matmul form on the card, the row scan on the CPU
+    m = x.shape[-1]
+    if deemph_mxu_path(x.device) and m % 128 == 0:
+        return _iir_scan_batch_mxu(avg, b, c)
+    s_in = _iir_row_scan(b, c)
+    y = s_in + avg[..., None] * device_const(_powers, float(c), 1, m + 1,
+                                             device=x.device)
+    return y[..., -1], y
 
 
 def deemph_blocks(avg, x, deemph_a: int):

@@ -17,6 +17,15 @@ def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
+def fp32_products() -> None:
+    """Matrix products and convolutions in full float32 (TF32 off), the
+    reference's ``Precision.HIGHEST``.  The package turns TF32 off at
+    import; the models that multiply matrices call this again before each
+    step, so a caller that switched TF32 on does not change their values."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 @functools.lru_cache(maxsize=256)
 def _cached(make_table, args, device: str) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(make_table(*args)),

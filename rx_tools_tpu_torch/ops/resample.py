@@ -31,6 +31,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from rx_tools_tpu_torch.ops.filters import _scan_matrix
 from rx_tools_tpu_torch.ops.numeric import device_const
@@ -331,3 +332,170 @@ def resample_rational(state: ResampleState, x: torch.Tensor, fast: int,
     return (ResampleState(new_acc.to(torch.float32),
                           new_phase.to(torch.int32)),
             y, n_valid)
+
+
+def periodic_eligible(fast: int, slow: int, device: torch.device) -> bool:
+    """True when :func:`resample_rational_batch` on ``device`` takes the
+    periodic-mask form (:func:`_resample_cm_periodic`): on the card, when
+    the reduced frame is small (the CPU keeps the prefix-sum form, as the
+    reference package does off its accelerator)."""
+    return torch.device(device).type == "cuda" and periodic_frame(fast, slow)
+
+
+def periodic_frame(fast: int, slow: int) -> bool:
+    """True when the reduced ratio's frame is small enough for the
+    periodic-mask resamplers: ``fast + E <= 512`` and ``E <= fast`` for
+    ``E = fast // slow + 2`` lookback rows (the reference's gate)."""
+    f, s = _reduce(fast, slow)
+    e = f // s + 2
+    return f + e <= 512 and e <= f
+
+
+def _running_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sequential float32 inclusive sum along the last (short) axis."""
+    cols = [x[..., 0]]
+    for k in range(1, x.shape[-1]):
+        cols.append(cols[-1] + x[..., k])
+    return torch.stack(cols, dim=-1)
+
+
+def prefix_sum16(x: torch.Tensor, base: int = 16) -> torch.Tensor:
+    """Inclusive prefix sum along the last axis in the order of the
+    reference's CPU cumsum (XLA's blocked rewrite of a long
+    ``reduce_window``): sequential float32 sums inside rows of 16, the row
+    totals scanned the same way, recursively, each row plus its carry.
+    Bit for bit the reference's on every device (``torch.cumsum``
+    accumulates in double on the CPU and in a parallel order on CUDA)."""
+    n = x.shape[-1]
+    if n <= base:
+        return _running_sum(x)
+    lead = x.shape[:-1]
+    r = -(-n // base)
+    rows = F.pad(x, (0, r * base - n)).reshape(*lead, r, base)
+    within = _running_sum(rows)
+    carry = prefix_sum16(within[..., -1], base)
+    carry = torch.cat([carry.new_zeros((*lead, 1)), carry[..., :-1]], dim=-1)
+    return (within + carry[..., None]).reshape(*lead, r * base)[..., :n]
+
+
+def _shared_phase(state: ResampleState) -> torch.Tensor:
+    """The channels' common carried phase (element 0), as int64."""
+    return state.phase[0].to(torch.int64)
+
+
+def _fill(value: torch.Tensor, n: int) -> torch.Tensor:
+    """A 0-dim tensor repeated ``n`` times, as int32."""
+    return value.to(torch.int32).expand(n).contiguous()
+
+
+def _resample_cm_periodic(state: ResampleState, x: torch.Tensor, fast: int,
+                          slow: int):
+    """Channel-major batched resampler via the exact emission periodicity
+    ``pos(k + slow) == pos(k) + fast``: every ``fast``-input frame emits
+    ``slow`` outputs with the same window pattern, so the whole resampler
+    is one ``(fast+E, slow)`` 0/1 mask (built from the carried phase, on
+    the device) contracted against extended input frames.  ``x`` (C, M) ->
+    ``(state, y (C, cap), n_valid ())``; same emission grid, divisor and
+    carried state as :func:`resample_rational_batch` (window sums
+    associate differently).
+
+    A block that emits nothing carries the incoming ``acc`` on, as the
+    cumsum form does (the reference package's periodic form drops it,
+    ADVICE.md:3)."""
+    fast, slow = _reduce(fast, slow)
+    c_ch, m = x.shape
+    cap = m * slow // fast + 2
+    divisor = _f32_divisor(fast, slow)
+    e = fast // slow + 2                       # lookback rows per frame
+    assert e <= fast, (fast, slow)
+    dev = x.device
+    phase0 = _shared_phase(state)
+    total = (phase0 + m * slow) // fast
+
+    g_frames = -(-(m + 1) // fast) + 1
+    xp = torch.cat([x.new_zeros((c_ch, e)), x,
+                    x.new_zeros((c_ch, g_frames * fast - m))], dim=1)
+    main = xp[:, e:].reshape(c_ch, g_frames, fast)
+    look = xp[:, : g_frames * fast].reshape(c_ch, g_frames, fast)[:, :, :e]
+    frames = torch.cat([look, main], dim=2)            # (C, G, fast+E)
+
+    s_mask = _periodic_mask(phase0, fast, slow, e, dev).to(x.dtype)
+    y = (frames @ s_mask).reshape(c_ch, g_frames * slow)[:, :cap]
+    kk = torch.arange(cap, device=dev)[None, :]
+    zero = torch.zeros((), dtype=x.dtype, device=dev)
+    y = y + torch.where(kk == 0, 1.0, zero) * state.acc[:, None]
+    y = torch.where(kk < total, y * divisor, zero)
+
+    tail_cols = min(fast + e, m)
+    last_pos = torch.clamp((total * fast - phase0 + slow - 1) // slow - 1,
+                           -1, m - 1)
+    col_i = torch.arange(tail_cols, device=dev)[None, :] + (m - tail_cols)
+    new_acc = torch.sum(x[:, m - tail_cols:]
+                        * (col_i > last_pos).to(x.dtype), dim=1)
+    new_acc = torch.where(total > 0, new_acc, new_acc + state.acc)
+    return (ResampleState(new_acc.to(torch.float32),
+                          _fill((phase0 + m * slow) % fast, c_ch)),
+            y, total.to(torch.int32))
+
+
+def _periodic_mask(phase0: torch.Tensor, fast: int, slow: int, e: int,
+                   dev: torch.device) -> torch.Tensor:
+    """(fast+E, slow) bool: input ``i - E`` of a frame feeds its output
+    ``j``, for the carried phase ``phase0`` (output j of a frame consumes
+    inputs ``(pos(j-1), pos(j)]``)."""
+    j = torch.arange(slow, device=dev)
+    posj = ((j + 1) * fast - phase0 + slow - 1) // slow - 1
+    posjp = (j * fast - phase0 + slow - 1) // slow - 1
+    i_rel = torch.arange(fast + e, device=dev)[:, None] - e
+    return (i_rel > posjp[None, :]) & (i_rel <= posj[None, :])
+
+
+def resample_rational_batch(state: ResampleState, x: torch.Tensor, fast: int,
+                            slow: int):
+    """Batched :func:`resample_rational` over a channel axis: ``x`` (C, N).
+
+    The prefix sums are :func:`prefix_sum16` (the reference's association,
+    so this form equals the reference's bit for bit).  Every channel of a channelizer consumes equal-length blocks, so all
+    share one (data-independent) emission grid: positions and masks are
+    computed once, on the device from the carried phase (no host sync),
+    and the window ends are gathered along that one index vector.
+    ``state.acc`` (C,) per-channel leftovers; ``state.phase`` (C,) int32,
+    identical by construction (element 0 is used).  Returns
+    ``(state, y (C, cap), n_valid ())``."""
+    if fast < slow:
+        raise ValueError(
+            f"resample target {slow} exceeds input rate {fast}: "
+            "low_pass_real only downsamples (use -r below -s)")
+    c_ch, n = x.shape
+    if n * _reduce(fast, slow)[1] + fast >= 2 ** 31:
+        raise ValueError(
+            f"block of {n} samples overflows the int32 resampler phase for "
+            f"ratio {fast}/{slow}; split the stream into smaller chunks")
+    if periodic_eligible(fast, slow, x.device):
+        return _resample_cm_periodic(state, x, fast, slow)
+    cap = n * slow // fast + 2
+    divisor = _f32_divisor(fast, slow)
+    fast, slow = _reduce(fast, slow)
+    dev = x.device
+    phase0 = _shared_phase(state)
+
+    k = torch.arange(cap, device=dev)
+    total_emits = (phase0 + n * slow) // fast
+    pos = ((k + 1) * fast - phase0 + slow - 1) // slow - 1   # shared
+    valid = k < total_emits
+    csum = prefix_sum16(x)                                  # (C, N)
+    ends = csum[:, torch.clamp(pos, 0, n - 1)]              # (C, cap)
+    starts = torch.cat([x.new_zeros((c_ch, 1)), ends[:, :-1]], dim=1)
+    zero = torch.zeros((), dtype=x.dtype, device=dev)
+    y = ((ends - starts)
+         + torch.where(k == 0, 1.0, zero)[None, :] * state.acc[:, None])
+    y = torch.where(valid[None, :], y * divisor, zero)
+
+    total = csum[:, -1] + state.acc
+    last = torch.clamp((total_emits * fast - phase0 + slow - 1) // slow - 1,
+                       0, n - 1)
+    consumed_end = torch.where(total_emits > 0, csum[:, last] + state.acc,
+                               zero)
+    return (ResampleState((total - consumed_end).to(torch.float32),
+                          _fill((phase0 + n * slow) % fast, c_ch)),
+            y, total_emits.to(torch.int32))

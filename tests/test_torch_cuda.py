@@ -287,3 +287,136 @@ def test_tensor_codecs_card_bitwise(cuda, name, monkeypatch):
     want = fn(x)
     assert got.device.type == "cuda"
     np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def _fm_scene(fs, n, offsets, seed=3, amp=40, gain=64):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)
+    z = np.zeros(n, np.complex128)
+    for off in offsets:
+        au = np.sin(2 * np.pi * (700 + off % 997) * t / fs)
+        z += amp * np.exp(1j * (2 * np.pi * off * t / fs
+                                + 2 * np.pi * 12e3 * np.cumsum(au) / fs))
+    z += rng.normal(0, 0.5, n) + 1j * rng.normal(0, 0.5, n)
+    iq = np.empty(2 * n, np.int16)
+    iq[0::2] = np.round(z.real * gain)
+    iq[1::2] = np.round(z.imag * gain)
+    return iq
+
+
+def _scaled_close(got, want, tol):
+    want = want.cpu().numpy().astype(np.float64)
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got.cpu().numpy() / scale, want / scale,
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("engine", ["tmaj", "cm"])
+@pytest.mark.parametrize("kind", ["mixer", "pfb"])
+def test_channelizers_card_match_cpu(cuda, tf32_on, kind, engine):
+    """Both engines of both channelizers on the card against the port on
+    the CPU over 3 chained blocks, with TF32 allowed in the process (the
+    steps switch it off): audio and float state at the engines' bounds
+    (tests/test_channelizer.py:119, tests/test_pfb.py:174), counts, NCO
+    numerators and resampler phases exact."""
+    from rx_tools_tpu_torch.models import channelizer, convert, pfb
+    fs = 2_400_000
+    if kind == "mixer":
+        offs = (-600_000.0, -150_000.0, 37_000.0, 420_000.0)
+        cfg = channelizer.ChannelizerConfig(
+            capture_rate=fs, offsets=offs, downsample=16, mode="fm",
+            custom_atan=1, deemph_a=7, rate_out2=32_000)
+        n = channelizer.block_samples(cfg, target=131072)
+        tol = 5e-4
+        if engine == "tmaj":
+            init, step = channelizer.init_state_tmaj, \
+                channelizer.channelize_step_tmaj
+        else:
+            init, step = channelizer.init_state, channelizer.channelize_step
+    else:
+        offs = (-300_000.0, 37_500.0, 412_500.0)
+        cfg = pfb.PfbConfig(capture_rate=fs, n_channels=64, mode="fm",
+                            custom_atan=1, deemph_a=7, rate_out2=32_000)
+        n = pfb.block_samples(cfg, target=524288)
+        tol = 2e-4
+        init, step = ((pfb.init_state_tmaj, pfb.pfb_step_tmaj)
+                      if engine == "tmaj" else (pfb.init_state, pfb.pfb_step))
+    iq = _fm_scene(fs, 3 * n, offs)
+    sg, sc = init(cfg, cuda), init(cfg, "cpu")
+    for b in range(3):
+        blk = iq[b * 2 * n: (b + 1) * 2 * n]
+        sg, ag, ng = step(cfg, sg, blk)
+        sc, ac, nc = step(cfg, sc, blk)
+        assert ag.device.type == "cuda"
+        assert torch.equal(ng.cpu(), nc)
+        _scaled_close(ag, ac, tol)
+        got, want = convert.state_to_numpy(sg), convert.state_to_numpy(sc)
+        for k, w in want.items():
+            for kk, ww in (w.items() if isinstance(w, dict) else [(k, w)]):
+                gg = got[k][kk] if isinstance(w, dict) else got[k]
+                if np.issubdtype(ww.dtype, np.integer):
+                    np.testing.assert_array_equal(gg, ww)
+                else:
+                    _scaled_close(torch.as_tensor(gg), torch.as_tensor(ww),
+                                  tol)
+
+
+@pytest.mark.parametrize("kind", ["mixer", "pfb"])
+def test_scan_blocks_bitwise_per_block_on_card(cuda, kind):
+    """The chunked steps (``*_scan_blocks_tmaj``) give per-block stepping's
+    bits on the card."""
+    from rx_tools_tpu_torch.models import channelizer, pfb
+    fs = 2_400_000
+    if kind == "mixer":
+        cfg = channelizer.ChannelizerConfig(
+            capture_rate=fs, offsets=(-150_000.0, 420_000.0), downsample=16,
+            mode="fm", custom_atan=1, deemph_a=7, rate_out2=32_000)
+        n = channelizer.block_samples(cfg, target=131072)
+        init, step = channelizer.init_state_tmaj, \
+            channelizer.channelize_step_tmaj
+        scan = channelizer.channelize_scan_blocks_tmaj
+    else:
+        cfg = pfb.PfbConfig(capture_rate=fs, n_channels=64, mode="fm",
+                            custom_atan=1, deemph_a=7, rate_out2=32_000)
+        n = pfb.block_samples(cfg, target=131072)
+        init, step, scan = (pfb.init_state_tmaj, pfb.pfb_step_tmaj,
+                            pfb.pfb_scan_blocks_tmaj)
+    blocks = _fm_scene(fs, 4 * n, (-150_000, 420_000)).reshape(4, 2 * n)
+    st_s, a_s, nv_s = scan(cfg, init(cfg, cuda), blocks)
+    st = init(cfg, cuda)
+    for i in range(4):
+        st, a, nv = step(cfg, st, blocks[i])
+        assert torch.equal(a, a_s[i]) and torch.equal(nv, nv_s[i])
+
+
+@pytest.mark.parametrize("fast,slow", [(37500, 32000), (150000, 32000),
+                                       (48000, 32000)])
+def test_batch_resampler_forms_on_card(cuda, fast, slow):
+    """On the card the batch resampler takes the periodic-mask form; it
+    matches the prefix-sum form on the same card (tests/test_batch_tail.py:
+    60-84's bound) and the CPU's result."""
+    from rx_tools_tpu_torch import ops
+    from rx_tools_tpu_torch.ops import resample as rs
+    rng = np.random.default_rng(51)
+    c = 8
+    st_p = rs.ResampleState(torch.zeros(c, device=cuda),
+                            torch.zeros(c, dtype=torch.int32, device=cuda))
+    st_g, st_c = st_p, rs.ResampleState(torch.zeros(c),
+                                        torch.zeros(c, dtype=torch.int32))
+    assert rs.periodic_eligible(fast, slow, cuda)
+    for _ in range(3):
+        x = torch.as_tensor(rng.normal(0, 5000, (c, 1024)).astype(np.float32))
+        st_p, yp, nvp = ops.resample_rational_batch(st_p, x.to(cuda), fast,
+                                                    slow)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(rs, "periodic_eligible", lambda *a: False)
+            st_g, yg, nvg = ops.resample_rational_batch(st_g, x.to(cuda),
+                                                        fast, slow)
+        st_c, yc, nvc = ops.resample_rational_batch(st_c, x, fast, slow)
+        assert int(nvp) == int(nvg) == int(nvc)
+        for y, acc in ((yg, st_g.acc), (yc, st_c.acc)):
+            np.testing.assert_allclose(yp.cpu().numpy(), y.cpu().numpy(),
+                                       rtol=1e-4, atol=0.5)
+            np.testing.assert_allclose(st_p.acc.cpu().numpy(),
+                                       acc.cpu().numpy(), rtol=1e-4, atol=0.5)
+        assert torch.equal(st_p.phase.cpu(), st_c.phase)

@@ -58,6 +58,11 @@ def test_import_leaves_jax_out():
             "import rx_tools_tpu_torch.iq.formats, rx_tools_tpu_torch.iq.rtltcp\n"
             "import rx_tools_tpu_torch.iq.soapy, rx_tools_tpu_torch.native\n"
             "import rx_tools_tpu_torch.native.build\n"
+            "import rx_tools_tpu_torch.apps.rx_channels\n"
+            "import rx_tools_tpu_torch.models.channelizer\n"
+            "import rx_tools_tpu_torch.models.pfb, rx_tools_tpu_torch.models.tmaj\n"
+            "import rx_tools_tpu_torch.examples.scan_and_demod\n"
+            "import rx_tools_tpu_torch.examples.multichannel_fm\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'rx_tools_tpu.')) or m == 'rx_tools_tpu']\n"
             "assert not bad, bad\n")
@@ -114,6 +119,38 @@ def test_entry_points_refuse_cpu_fallback(no_cuda, tmp_path):
         rx_power.main(["-f", "100M:102M:50k", "-1", "-d", "synth=tone",
                        str(csv)])
     assert not csv.exists()
+
+
+def test_channelizers_refuse_cpu_fallback(no_cuda, tmp_path):
+    """rx_channels, the channelizers' states and their converters raise
+    without CUDA and without a request for the CPU; no file is written."""
+    from rx_tools_tpu_torch.apps import rx_channels
+    from rx_tools_tpu_torch.examples import multichannel_fm
+    from rx_tools_tpu_torch.models import channelizer, convert, pfb
+    out = tmp_path / "ch"
+    for sel in (["-n", "16"], ["-k", "100.2M", "-D", "16"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            rx_channels.main(["-f", "100M", "-s", "1024k", *sel, "-d",
+                              "synth=fm", str(out)])
+    assert not out.exists()
+    ccfg = channelizer.ChannelizerConfig(capture_rate=1_024_000,
+                                         offsets=(1000.0,), downsample=16)
+    pcfg = pfb.PfbConfig(capture_rate=1_024_000, n_channels=16)
+    for init, cfg, conv in (
+            (channelizer.init_state, ccfg,
+             convert.channelizer_state_from_numpy),
+            (channelizer.init_state_tmaj, ccfg,
+             convert.channelizer_state_tm_from_numpy),
+            (pfb.init_state, pcfg, convert.pfb_state_from_numpy),
+            (pfb.init_state_tmaj, pcfg, convert.pfb_state_tm_from_numpy)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init(cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            conv(convert.state_to_numpy(init(cfg, "cpu")))
+    cap = tmp_path / "cap.cs16"
+    np.zeros(2 * 65536, np.int16).tofile(cap)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multichannel_fm.main([str(cap), "1024k", "100.2M"])
 
 
 def test_rx_sdr_needs_no_device(no_cuda, tmp_path):
