@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's rx_fm chains, rx_power, its I/Q sources and
-rx_channels on one CUDA card and check them.
+"""Drive the PyTorch port's rx_fm chains, rx_power, its I/Q sources,
+rx_channels and its sharded and multi-process paths on one CUDA card and
+check them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA card and the CUDA toolkit (nvcc); it builds the kernels from
@@ -97,7 +98,23 @@ Phases, in order:
     their device times (``torch.profiler``); and ``rx_channels -n 64``'s
     wall time on 3.28 s of the scene (the recording repeated), chunked and
     per-block;
-11. one JSON line listing every kernel entry point, then the result line.
+11. ``parallel/`` on one card: ``time_sharded_fm`` at BASELINE config #1
+    (4 shards of 12 258048-sample blocks on ``[cuda:0] * 4``, warmup 2, a
+    first super-chunk and a continuation) against the unsharded
+    ``scan_fm_blocks`` of the same blocks on the card (same counts, rtol
+    1e-4, atol 0.1) and against the same calls on the CPU (1 LSB), K1
+    launched once a shard and once a halo replay; hop sharding at config
+    #5's shape on ``[cuda:0] * 2`` (float at rtol 1e-6 with samples equal,
+    ``--int-fft`` bitwise); channel sharding at D = 64, 524288-sample blocks
+    on ``[cuda:0] * 4`` (station channels within 1 LSB of ``pfb_step`` and
+    of the CPU); then the CLIs as two rank processes sharing the card over
+    gloo, each against one rank: ``rx_fm -M wbfm -E shard`` on a config #1
+    file (1 LSB from the same two ranks on the CPU, tone back), ``-M fm -E
+    shard`` (the streaming bytes), ``rx_power`` config #5 in both tiers and
+    ``rx_channels -n 64`` (station channels within 2 LSB of ``RX_PFB=cm``);
+    each sharded step timed against its unsharded step with CUDA events,
+    and the CLIs' wall times at 2 ranks and 1;
+12. one JSON line listing every kernel entry point, then the result line.
 """
 
 import contextlib
@@ -883,6 +900,422 @@ def channels_phase(counted, tmp, timing=True):
     print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 11's rank processes: each runs the port CLIs of a JSON plan in turn
+# (one process group for all of them) and prints one RANK_RESULT line
+RANK_CHILD = r"""
+import importlib, json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from rx_tools_tpu_torch.ops import frontend_mxu
+from rx_tools_tpu_torch.parallel import multihost
+k1 = frontend_mxu.capture_frontend_mm_pallas
+on_card = os.environ.get("RX_PLATFORM", "") != "cpu"
+# join the job and reach the card before any step is timed, so the wall
+# times leave out the peers' start-up skew and the CUDA context
+multihost.init()
+if on_card:
+    torch.zeros(1, device="cuda")
+done = []
+for step in json.load(open(sys.argv[2])):
+    saved = {k: os.environ.get(k) for k in step["env"]}
+    os.environ.update(step["env"])
+    app = importlib.import_module("rx_tools_tpu_torch.apps." + step["app"])
+    k1.launches = 0
+    t = time.perf_counter()
+    rc = app.main(step["args"])
+    if on_card:
+        torch.cuda.synchronize()
+    done.append({"name": step["name"], "rc": rc, "k1": k1.launches,
+                 "wall_s": time.perf_counter() - t})
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    if rc != 0:
+        break
+print("RANK_RESULT " + json.dumps(done), flush=True)
+sys.exit(0 if all(d["rc"] == 0 for d in done) else 1)
+"""
+
+
+def rank_job(tag, plan, n_ranks, tmp, env=(), timeout=400):
+    """Run ``plan`` (a list of {name, app, args, env}) in ``n_ranks``
+    processes joined over gloo on localhost; returns each rank's results by
+    step name.  A rank that fails or outlives ``timeout`` fails the phase,
+    and every rank is stopped."""
+    import socket
+    plan_path = tmp / f"{tag}.json"
+    plan_path.write_text(json.dumps(plan))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs, logs = [], []
+    for rank in range(n_ranks):
+        e = dict(os.environ)
+        for k in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+                  "JAX_PROCESS_ID", "JAX_NUM_CPU_DEVICES"):
+            e.pop(k, None)
+        if n_ranks > 1:
+            e.update(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                     JAX_NUM_PROCESSES=str(n_ranks), JAX_PROCESS_ID=str(rank))
+        e.update(dict(env))
+        out = open(tmp / f"{tag}.{rank}.out", "w+")
+        err = open(tmp / f"{tag}.{rank}.err", "w+")
+        logs.append((out, err))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", RANK_CHILD, str(ROOT), str(plan_path)],
+            stdout=out, stderr=err, env=e))
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for rank, (p, (out, err)) in enumerate(zip(procs, logs)):
+        out.seek(0)
+        err.seek(0)
+        text, errs = out.read(), err.read()
+        out.close()
+        err.close()
+        line = [ln for ln in text.splitlines() if ln.startswith("RANK_RESULT")]
+        if p.returncode != 0 or not line:
+            fail(f"{tag}: rank {rank} exited {p.returncode}:\n{errs[-3000:]}")
+        results.append({d["name"]: d for d in json.loads(line[0].split(" ", 1)[1])})
+    return results
+
+
+def parallel_phase(dev, cfg, synth, counted, tmp):
+    """Phase 11: parallel/ on one card — time, hop and channel sharding on
+    meshes that repeat ``cuda:0``, then the CLIs as two rank processes that
+    share the card over gloo.  Returns the K1 launches of the rank
+    processes."""
+    import numpy as np
+    import torch
+    from rx_tools_tpu_torch.apps import rx_sdr
+    from rx_tools_tpu_torch.kernels.timing import time_ms
+    from rx_tools_tpu_torch.models import fmchain, pfb, powerscan
+    from rx_tools_tpu_torch.parallel import (channel_sharded_pfb_step,
+                                             hop_sharded_sweep, make_mesh,
+                                             time_sharded_fm)
+    from rx_tools_tpu_torch.parallel.hopshard import int_hop_sharded
+    from rx_tools_tpu_torch.parallel.timeshard import resampler_modulus
+    from rx_tools_tpu_torch.stream.scan import scan_fm_blocks
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    def events_ms(fn, rounds=5):
+        """Median time of ``fn()`` between CUDA events, synchronised (the
+        sharded call waits on the host once for its carry)."""
+        times = []
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        return float(np.median(times))
+
+    # (a) time sharding at BASELINE config #1 (D = 14, 258048-sample
+    # blocks): 4 shards of 12 blocks on [cuda:0] * 4, warmup 2, a first
+    # super-chunk and a continuation, against the unsharded scan of the
+    # same blocks (chained 12-block chunks, the runner's chunk) and
+    # against the same calls on the CPU
+    s_n, m, warmup, block = 4, 12, 2, 258048
+    src = synth()
+    blocks = np.stack([src.read_stream(block)[1] for _ in range(2 * s_n * m)])
+    mesh = make_mesh(devices=[dev] * s_n)
+    cmesh = make_mesh(devices=[cpu] * s_n)
+    fmod = resampler_modulus(cfg)
+    chunks = [blocks[: s_n * m], blocks[s_n * m:]]
+    halo = chunks[0][-warmup:]
+
+    def sharded(mesh_, c, carry=None, on=None):
+        x = chunks[c].reshape(s_n, m, -1)
+        if on is not None:
+            x = torch.from_numpy(x).to(on)
+        if c == 0:
+            return time_sharded_fm(cfg, x, mesh=mesh_, warmup=warmup)
+        return time_sharded_fm(cfg, x, mesh=mesh_, warmup=warmup, cont=True,
+                               halo0=halo, block_offset_mod=(s_n * m) % fmod,
+                               iir_carry=carry)
+
+    (a1, nv1, cr1), k1a = counted(lambda: sharded(mesh, 0))
+    (a2, nv2, _), k1b = counted(lambda: sharded(mesh, 1, cr1[-1]))
+    k1_shard = [k1a["capture_frontend_mm_pallas"],
+                k1b["capture_frontend_mm_pallas"]]
+    if k1_shard != [2 * s_n, 2 * s_n]:
+        fail(f"time sharding launched K1 {k1_shard} times, want "
+             f"{2 * s_n} a call (one a shard, one a halo replay)")
+    st = fmchain.init_state(cfg, dev)
+    ref_a, ref_nv = [], []
+    for i in range(0, blocks.shape[0], m):
+        st, a, nv, _ = scan_fm_blocks(cfg, st, blocks[i: i + m])
+        ref_a.append(a)
+        ref_nv.append(nv)
+    ref_a = torch.cat(ref_a).cpu().numpy()
+    ref_nv = torch.cat(ref_nv).cpu().numpy()
+    got_a = np.concatenate([a1.cpu().numpy().reshape(s_n * m, -1),
+                            a2.cpu().numpy().reshape(s_n * m, -1)])
+    got_nv = np.concatenate([nv1.cpu().numpy().reshape(-1),
+                             nv2.cpu().numpy().reshape(-1)])
+    if not np.array_equal(got_nv, ref_nv):
+        fail("time sharding: emission counts differ from the unsharded scan")
+    flat = np.concatenate([got_a[i, : got_nv[i]] for i in range(len(got_nv))])
+    flat_ref = np.concatenate([ref_a[i, : ref_nv[i]]
+                               for i in range(len(ref_nv))])
+    if not np.allclose(flat, flat_ref, rtol=1e-4, atol=0.1):
+        fail("time sharding outside rtol 1e-4 / atol 0.1 of the unsharded "
+             f"scan: max |diff| {np.abs(flat - flat_ref).max()}")
+    c1 = sharded(cmesh, 0)
+    c2 = sharded(cmesh, 1, c1[2][-1])
+    cpu_flat = np.concatenate([
+        a.numpy().reshape(s_n * m, -1)[i, : n]
+        for a, nv in ((c1[0], c1[1]), (c2[0], c2[1]))
+        for i, n in enumerate(nv.numpy().reshape(-1))])
+    pcm, pcm_cpu = (fmchain.audio_to_int16(x) for x in (flat, cpu_flat))
+    if pcm.size != pcm_cpu.size:
+        fail(f"time sharding: card {pcm.size} vs CPU {pcm_cpu.size} PCM")
+    lsb = int(np.abs(pcm.astype(int) - pcm_cpu.astype(int)).max())
+    if lsb > 1:
+        fail(f"time sharding: card and CPU PCM differ by {lsb} LSB")
+    hz = tone_hz(pcm)
+    if abs(hz - 1000.0) > 10:
+        fail(f"time sharding: tone not recovered ({hz} Hz)")
+    print(f"time sharding (config #1, {s_n} x {m} blocks, warmup {warmup}, "
+          f"2 super-chunks): counts equal, max |diff| vs unsharded scan "
+          f"{np.abs(flat - flat_ref).max():.4g}, card vs CPU {lsb} LSB, tone "
+          f"{hz:.1f} Hz, K1 launches {k1_shard}")
+    x0 = torch.from_numpy(chunks[0]).to(dev)
+
+    def unsharded_scan():
+        st = fmchain.init_state(cfg, dev)
+        for i in range(0, s_n * m, m):
+            st, *_ = scan_fm_blocks(cfg, st, x0[i: i + m])
+
+    x0s = x0.reshape(s_n, m, -1)
+    walls = {"time_sharded_fm": [], "scan_fm_blocks": []}
+    for name in ("scan_fm_blocks", "time_sharded_fm", "time_sharded_fm",
+                 "scan_fm_blocks"):
+        fn = (unsharded_scan if name == "scan_fm_blocks" else
+              lambda: time_sharded_fm(cfg, x0s, mesh=mesh, warmup=warmup))
+        walls[name].append(events_ms(fn))
+    print(json.dumps({"parallel": "time_sharded_fm vs scan_fm_blocks",
+                      "blocks": s_n * m, "shards": s_n, "warmup": warmup,
+                      "ms": walls,
+                      "gb_per_s_int16_in": {
+                          k: [4 * block * s_n * m / (t * 1e-3) / 1e9
+                              for t in v] for k, v in walls.items()}}))
+    del x0, x0s, blocks, chunks
+
+    # (b) hop sharding at BASELINE config #5's shape (402 hops, 512 bins,
+    # 16 segments) on [cuda:0] * 2, both tiers, against the unsharded step
+    h, pcfg = 402, powerscan.PowerConfig(bin_e=9, buf_len=2 * 512 * 16)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    hb = [torch.randint(-20000, 20000, (h, pcfg.buf_len), generator=gen,
+                        device=dev, dtype=torch.int32).to(torch.int16)
+          for _ in range(3)]
+    hmesh = make_mesh(devices=[dev] * 2, axis="h")
+    acc_s = acc_u = powerscan.new_sweep_accum(h, pcfg, dev)
+    for b in hb:
+        acc_s = hop_sharded_sweep(pcfg, acc_s, b, hmesh)
+        acc_u = powerscan.sweep_step(pcfg, acc_u, b)
+    avg_s, avg_u = acc_s.avg.cpu().numpy(), acc_u.avg.cpu().numpy()
+    rel = float((np.abs(avg_s - avg_u) / np.abs(avg_u).clip(1e-30)).max())
+    if not (np.allclose(avg_s, avg_u, rtol=1e-6) and torch.equal(
+            acc_s.samples, acc_u.samples)):
+        fail(f"hop sharding: avg max rel err {rel} (rtol 1e-6) or samples "
+             "differ")
+    ints = int_hop_sharded(pcfg, hb[0], hmesh)
+    if not torch.equal(ints, powerscan.int_sweep_powers(pcfg, hb[0])):
+        fail("int_hop_sharded differs from int_sweep_powers on the card")
+    hop_ms = {
+        "sweep_step": time_ms(lambda b: powerscan.sweep_step(pcfg, acc_u, b),
+                              [(b,) for b in hb]),
+        "hop_sharded_sweep": time_ms(
+            lambda b: hop_sharded_sweep(pcfg, acc_u, b, hmesh),
+            [(b,) for b in hb]),
+        "int_sweep_powers": time_ms(
+            lambda b: powerscan.int_sweep_powers(pcfg, b),
+            [(b,) for b in hb], iters=5),
+        "int_hop_sharded": time_ms(lambda b: int_hop_sharded(pcfg, b, hmesh),
+                                   [(b,) for b in hb], iters=5)}
+    print(f"hop sharding (config #5 shape, 2 shards, 3 sweeps): avg max rel "
+          f"err {rel:.3g}, samples equal; --int-fft bitwise")
+    print(json.dumps({"parallel": "hop sharding, config #5 shape",
+                      "hops": h, "shards": 2, "ms": hop_ms}))
+    del hb, acc_s, acc_u
+
+    # (c) channel sharding at pfb_step_gbs's geometry (D = 64, 524288-sample
+    # blocks) on [cuda:0] * 4, over phase 10's eight-station scene
+    scene = tmp / "scene.cs16"
+    nb = 524288
+    if rx_sdr.main(["-f", str(CH_CENTER), "-s", "2.4M", "-d", CH_SCENE, "-n",
+                    str(2 * nb), "-F", "CS16", str(scene)]) != 0:
+        fail("rx_sdr could not record the phase 11 scene")
+    sblocks = np.fromfile(scene, np.int16).reshape(2, 2 * nb)
+    ccfg = pfb.PfbConfig(capture_rate=CAPTURE_RATE, n_channels=64,
+                         custom_atan=1, deemph_a=7, rate_out2=AUDIO_RATE)
+    stations = [(k + 64) % 64 for k in (-29, -22, -13, -5, 3, 9, 17, 26)]
+    cmesh4 = make_mesh(devices=[dev] * 4, axis="c")
+
+    def run_pfb(step, device, *mesh_):
+        st = pfb.init_state(ccfg, device)
+        out = []
+        for b in sblocks:
+            st, a, nv = step(ccfg, st, b, *mesh_)
+            out.append(fmchain.audio_to_int16(a.cpu().numpy()))
+        return np.concatenate(out, axis=1)
+
+    sh = run_pfb(channel_sharded_pfb_step, dev, cmesh4)
+    single = run_pfb(pfb.pfb_step, dev)
+    sh_cpu = run_pfb(channel_sharded_pfb_step, cpu,
+                     make_mesh(devices=[cpu] * 4, axis="c"))
+    d_one = np.abs(sh.astype(int) - single.astype(int))
+    d_cpu = np.abs(sh.astype(int) - sh_cpu.astype(int))
+    if d_one[stations].max() > 1 or d_cpu[stations].max() > 1:
+        fail(f"channel sharding: station channels {d_one[stations].max()} "
+             f"LSB from pfb_step, {d_cpu[stations].max()} from the CPU")
+    cb = [(torch.from_numpy(b).to(dev),) for b in sblocks]
+    holder = {}
+
+    def step_timed(kind):
+        holder[kind] = pfb.init_state(ccfg, dev)
+
+        def fn(b):
+            if kind == "pfb_step":
+                holder[kind], a, nv = pfb.pfb_step(ccfg, holder[kind], b)
+            else:
+                holder[kind], a, nv = channel_sharded_pfb_step(
+                    ccfg, holder[kind], b, cmesh4)
+            return a
+        return fn
+
+    ch_ms = {k: time_ms(step_timed(k), cb, iters=10)
+             for k in ("pfb_step", "channel_sharded_pfb_step")}
+    print(f"channel sharding (D = 64, {nb}-sample blocks, 4 shards, 2 "
+          f"blocks): station channels {d_one[stations].max()} LSB from "
+          f"pfb_step and {d_cpu[stations].max()} from the CPU (all 64: "
+          f"{d_one.max()} and {d_cpu.max()})")
+    print(json.dumps({"parallel": "channel sharding, D = 64", "shards": 4,
+                      "block_samples": nb, "ms": ch_ms}))
+    del cb, holder
+
+    # (d) the CLIs as rank processes sharing the card over gloo: config #1
+    # recorded by rx_sdr (1.2 s at 2.4 Msps), rx_fm -E shard with 64-block
+    # shards (two sharded super-chunks and a tail), rx_power config #5 in
+    # both tiers, rx_channels -n 64 over the scene
+    cap = tmp / "cfg1.cs16"
+    tune = STATION + CAPTURE_RATE / 4 + 16e3
+    if rx_sdr.main(["-f", f"{tune:.0f}", "-s", "2.4M", "-d",
+                    "synth=fm,audio=1k,dev=75k,amp=0.8,noise=0.001,seed=7,"
+                    f"carrier={STATION:.0f}", "-n", "2880000", "-F", "CS16",
+                    str(cap)]) != 0:
+        fail("rx_sdr could not record config #1 for phase 11")
+    fm_src = ["-f", f"{STATION:.0f}", "-s", "2.4M", "-d",
+              f"file={cap},format=CS16,rate=2.4M"]
+    p5 = ["-f", "100M:1G:10k", "-c", "20%", "-1", "-S", "0", "-d",
+          POWER_SCENE]
+    shard = {"RX_SHARD_BLOCKS": "64"}
+
+    def plan(layout, one_rank):
+        o = tmp / layout
+        steps = [
+            ("wbfm", "rx_fm", ["-M", "wbfm", "-E", "shard"] + fm_src
+             + [f"{o}.wbfm.raw"], shard),
+            ("fm", "rx_fm", ["-M", "fm", "-E", "shard"] + fm_src
+             + [f"{o}.fm.raw"], shard),
+            ("power", "rx_power", p5 + [f"{o}.p.csv"], {}),
+            ("power-int", "rx_power", p5 + ["--int-fft", f"{o}.pi.csv"], {}),
+            ("channels", "rx_channels", [
+                "-f", str(CH_CENTER), "-s", "2.4M", "-n", "64", "-M", "fm",
+                "-A", "fast", "-c", "us", "-r", "32k", "-d",
+                f"file={scene},format=CS16,rate=2.4M", f"{o}.ch"],
+             {"RX_PFB": "cm"} if one_rank else {})]
+        if one_rank:
+            steps.append(("fm-stream", "rx_fm", ["-M", "fm"] + fm_src
+                          + [f"{o}.fms.raw"], {}))
+        return [dict(name=n, app=a, args=g, env=e) for n, a, g, e in steps]
+
+    two = rank_job("two", plan("two", False), 2, tmp)
+    one = rank_job("one", plan("one", True), 1, tmp)
+    two_cpu = rank_job("two_cpu", plan("two_cpu", False)[:1], 2, tmp,
+                       env=[("RX_PLATFORM", "cpu")])
+    if "Sharding super-chunks of 128 blocks over 2 devices" not in (
+            tmp / "two.0.err").read_text():
+        fail("the 2-rank rx_fm -E shard did not shard a super-chunk")
+
+    def pcm(name):
+        return np.fromfile(tmp / name, np.int16)
+
+    w2, w2c, w1 = pcm("two.wbfm.raw"), pcm("two_cpu.wbfm.raw"), pcm(
+        "one.wbfm.raw")
+    if w2.size != w2c.size or w2.size != w1.size or w2.size < 20000:
+        fail(f"rx_fm -E shard wbfm: 2 ranks {w2.size}, on the CPU "
+             f"{w2c.size}, 1 rank {w1.size} PCM samples")
+    lsb_cpu = int(np.abs(w2.astype(int) - w2c.astype(int)).max())
+    lsb_one = int(np.abs(w2.astype(int) - w1.astype(int)).max())
+    hz = tone_hz(w2)
+    if lsb_cpu > 1 or abs(hz - 1000.0) > 10:
+        fail(f"rx_fm -E shard wbfm, 2 ranks: {lsb_cpu} LSB from the CPU, "
+             f"tone {hz} Hz")
+    f2, f1 = (tmp / "two.fm.raw").read_bytes(), (
+        tmp / "one.fms.raw").read_bytes()
+    if f2 != f1 or len(f1) < 40000:
+        fail(f"rx_fm -M fm -E shard at 2 ranks ({len(f2)} bytes) differs "
+             f"from the streaming run ({len(f1)} bytes)")
+    pw = {}
+    for name, exact in (("p", False), ("pi", True)):
+        rows2, rows1 = csv_rows(tmp / f"two.{name}.csv"), csv_rows(
+            tmp / f"one.{name}.csv")
+        if len(rows1) != 402:
+            fail(f"rx_power {name}: {len(rows1)} rows, want 402")
+        pw[name] = (rows_agree(f"rx_power {name} 2 ranks vs 1", rows2, rows1,
+                               exact), rows2 == rows1)
+    ch2 = {p.name: np.fromfile(p, np.int16)
+           for p in sorted((tmp / "two.ch").glob("ch*.s16"))}
+    ch1 = {p.name: np.fromfile(p, np.int16)
+           for p in sorted((tmp / "one.ch").glob("ch*.s16"))}
+    if list(ch2) != list(ch1) or len(ch1) != 64:
+        fail(f"rx_channels 2 ranks wrote {len(ch2)} files, 1 rank {len(ch1)}")
+    ch_lsb = {}
+    for k, (n2, a) in enumerate(ch2.items()):
+        b = ch1[n2]
+        if a.size != b.size or a.size < 4000:
+            fail(f"rx_channels {n2}: 2 ranks {a.size}, 1 rank {b.size}")
+        ch_lsb[k] = int(np.abs(a.astype(int) - b.astype(int)).max())
+    st_lsb = max(ch_lsb[k] for k in stations)
+    if st_lsb > 2:
+        fail(f"rx_channels 2 ranks vs 1: station channels {st_lsb} LSB")
+    print(f"CLIs at 2 ranks on one card: rx_fm wbfm -E shard {w2.size} PCM, "
+          f"{lsb_cpu} LSB from 2 CPU ranks, {lsb_one} from 1 rank, tone "
+          f"{hz:.1f} Hz; -M fm -E shard = streaming bytes; rx_power config "
+          f"#5 float max |dB| {pw['p'][0]} (identical {pw['p'][1]}), "
+          f"--int-fft identical {pw['pi'][1]}; rx_channels -n 64 station "
+          f"channels {st_lsb} LSB (all: {max(ch_lsb.values())})")
+    print(json.dumps({"parallel": "CLI wall s, 2 ranks vs 1 on one card",
+                      "two_ranks": {k: [r[k]["wall_s"] for r in two]
+                                    for k in two[0]},
+                      "one_rank": {k: v["wall_s"] for k, v in one[0].items()},
+                      "two_cpu_ranks": {k: [r[k]["wall_s"] for r in two_cpu]
+                                        for k in two_cpu[0]},
+                      "k1_launches": {k: [r[k]["k1"] for r in two]
+                                      for k in two[0]}}))
+    print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return sum(d["k1"] for r in two + one for d in r.values())
+
+
 def main():
     import numpy as np
     import torch
@@ -1410,7 +1843,12 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         channels_phase(counted, Path(tmp))
 
-    # ---- phase 11: the record ----------------------------------------------
+    # ---- phase 11: parallel/ on one card ------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        path_counts["capture_frontend_mm_pallas"].append(
+            parallel_phase(dev, cfg, synth, counted, Path(tmp)))
+
+    # ---- phase 12: the record ----------------------------------------------
     kern["int_deemph"] = deemph
     lines = []
     for name, k in kern.items():

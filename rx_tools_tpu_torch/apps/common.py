@@ -68,20 +68,6 @@ class maybe_profile:
         return False
 
 
-def multi_process_env() -> bool:
-    """True when the environment configures a job of more than one
-    process, by the variables the reference package's
-    ``parallel/multihost.py`` reads: a coordinator address or a pod's
-    worker list, unless ``JAX_NUM_PROCESSES`` says 1.  The CLIs refuse
-    such a job until the port's ``parallel/`` slice lands."""
-    env = os.environ
-    configured = bool(env.get("JAX_COORDINATOR_ADDRESS")
-                      or "," in env.get("TPU_WORKER_HOSTNAMES", "")
-                      or env.get("MEGASCALE_COORDINATOR_ADDRESS"))
-    n = env.get("JAX_NUM_PROCESSES", "").strip()
-    return configured and not (n.isdigit() and int(n) <= 1)
-
-
 def verbose_device_search(query: str, wire_format: str = "CS16") -> Source:
     """``verbose_device_search`` (convenience.c:469-489).
 

@@ -18,9 +18,16 @@ of 128; the mixer runs time-major unless ``RX_MIXER=cm`` or
 as one block a dispatch.  PCM is quantised to int16 on the card and only
 int16 crosses to the host, one chunk behind the dispatch.
 
-One card: ``-t N`` resolves to it (logged), and a job of several
-processes waits for the port's ``parallel/`` slice (it logs one line and
-exits 1).  ``RX_PLATFORM=cpu`` runs everything on the CPU.
+Scaling, as in the reference package: ``-t N`` shards the PFB's channel
+axis over N of this process's devices (``parallel/chanshard.py``, the
+channel-major engine per shard), and a multi-process job
+(``parallel/multihost.py``, the reference package's
+``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``)
+divides the channels (``-n``) or stations (``-k``) across processes with no
+communication: each process computes and writes only its own channels from
+the same deterministic file or synth source.  A process left with no
+channel logs so and exits 0.  ``RX_PLATFORM=cpu`` runs everything on the
+CPU.
 
     python -m rx_tools_tpu_torch.apps.rx_channels -f 98M -s 2.4M -n 64 \\
         -M fm -A fast -c us -r 32k -d file=band.cs16,rate=2.4M out/
@@ -37,7 +44,7 @@ import torch
 
 from rx_tools_tpu_torch import ops
 from rx_tools_tpu_torch.apps import common
-from rx_tools_tpu_torch.device import resolve_device
+from rx_tools_tpu_torch.device import local_devices, resolve_device
 from rx_tools_tpu_torch.models import channelizer, pfb
 from rx_tools_tpu_torch.models.fmchain import as_block
 from rx_tools_tpu_torch.utils.logging import log
@@ -57,7 +64,7 @@ Usage:\t -f center_frequency [Hz]
 \t[-b block size in capture samples (default: 131072)]
 \t[-e exit after N seconds of signal]
 \t[-d device key/value query] [-g gain] [-p ppm] [-a antenna]
-\t[-t devices (one card: resolves to 1)]
+\t[-t devices: shard -n channels over this many local devices]
 \toutput directory (channel files chNN_<freq>.s16)
 """
 
@@ -141,10 +148,14 @@ def main(argv=None) -> int:
     if mode not in ("fm", "am", "usb", "lsb", "raw"):
         log("unsupported mode: %s", mode)
         return 1
-    if common.multi_process_env():
-        log("rx_channels: multi-process channel division is not yet ported "
-            "to rx_tools_tpu_torch (it waits for the parallel/ slice).")
+    device = resolve_device()
+    from rx_tools_tpu_torch.parallel import multihost
+    try:
+        pid = multihost.init()
+    except RuntimeError as e:
+        log("rx_channels: %s", str(e))
         return 1
+    n_proc = multihost.process_count()
 
     d = n_uniform if n_uniform else decim
     channel_rate = rate // d
@@ -158,10 +169,28 @@ def main(argv=None) -> int:
         deemph_a = ops.deemph_alpha(channel_rate, tc_us)
     rate_cfg = rate_out2 if rate_out2 > 0 else -1
 
-    device = resolve_device()
-    if dev_parallel != 1:
-        log("-t %d: one card here; sharding channels over devices waits for "
-            "the parallel/ slice.", dev_parallel)
+    # --- multi-process channel division: each process takes a contiguous
+    #     slice of the channels (the replicated capture front, only its own
+    #     DFT rows / mixer columns and tails) and writes only its files ----
+    n_all = n_uniform or len(stations)
+    chan_index0, my_hi = 0, n_all
+    if n_proc > 1:
+        per = -(-n_all // n_proc)
+        chan_index0 = min(pid * per, n_all)
+        my_hi = min(chan_index0 + per, n_all)
+        if my_hi <= chan_index0:
+            # more processes than channels: the reference package builds
+            # empty state here (ADVICE.md:5); this process has nothing to do
+            log("Multi-process channels: process %d/%d owns no channels "
+                "(%d %s).", pid, n_proc, n_all,
+                "channels" if n_uniform else "stations")
+            return 0
+        if n_uniform:
+            log("Multi-process channels: process %d/%d owns channels "
+                "%d..%d of %d.", pid, n_proc, chan_index0, my_hi - 1, n_all)
+        else:
+            log("Multi-process channels: process %d/%d owns stations "
+                "%d..%d.", pid, n_proc, chan_index0, my_hi - 1)
     tmaj_layout = False
     scan_step = None
     if n_uniform:
@@ -169,8 +198,34 @@ def main(argv=None) -> int:
                             mode=mode, custom_atan=ops.disc_mode(atan),
                             deemph_a=deemph_a, rate_out2=rate_cfg)
         freqs = [freq + off for off in cfg.channel_freqs()]
+        freqs = freqs[chan_index0:my_hi]
+        my_n = my_hi - chan_index0
         block_size = pfb.block_samples(cfg, target=block_target)
-        if (os.environ.get("RX_PFB", "tmaj") == "tmaj" and mode != "raw"
+        # the channel axis shards over this process's devices (no exchange
+        # in the steady state, parallel/chanshard.py): the largest count
+        # up to -t that divides the process's channels
+        devs = local_devices(device)
+        want = (len(devs) if dev_parallel <= 0
+                else min(dev_parallel, len(devs)))
+        n_mesh = next(c for c in range(min(want, my_n), 0, -1)
+                      if my_n % c == 0)
+        if n_mesh > 1 or n_proc > 1:
+            from rx_tools_tpu_torch.parallel import (channel_sharded_pfb_step,
+                                                     make_mesh)
+            mesh_c = make_mesh(n_mesh, axis="c", devices=devs)
+            rng_c = (chan_index0, my_hi)
+            full = pfb.init_state(cfg, device)
+            state = pfb.PfbState(
+                tail=full.tail, prev_iq=full.prev_iq[chan_index0:my_hi],
+                deemph_avg=full.deemph_avg[chan_index0:my_hi],
+                resamp=type(full.resamp)(
+                    full.resamp.acc[chan_index0:my_hi],
+                    full.resamp.phase[chan_index0:my_hi]))
+
+            def step(c, s, b, _m=mesh_c, _r=rng_c):
+                return channel_sharded_pfb_step(c, s, b, _m, channels=_r)
+            log("Sharding %d channels over %d devices.", my_n, n_mesh)
+        elif (os.environ.get("RX_PFB", "tmaj") == "tmaj" and mode != "raw"
                 and (block_size // n_uniform) % 128 == 0):
             state = pfb.init_state_tmaj(cfg, device)
             step = pfb.pfb_step_tmaj
@@ -184,6 +239,8 @@ def main(argv=None) -> int:
         if max(abs(o) for o in offsets) > rate / 2:
             log("station %s is outside the capture bandwidth", max(stations))
             return 1
+        stations = stations[chan_index0:my_hi]
+        offsets = offsets[chan_index0:my_hi]
         cfg = channelizer.ChannelizerConfig(
             capture_rate=rate, offsets=offsets, downsample=decim,
             mode=mode, custom_atan=ops.disc_mode(atan), deemph_a=deemph_a,
@@ -213,9 +270,16 @@ def main(argv=None) -> int:
         common.verbose_ppm_set(src, ppm)
         src.activate()                 # inside the suppression window too
 
+    if n_proc > 1:
+        from rx_tools_tpu_torch.iq.sources import FileSource, SynthSource
+        if not isinstance(src, (FileSource, SynthSource)):
+            log("multi-process rx_channels needs a deterministic "
+                "replayable source (file=/synth=).")
+            return 1
     os.makedirs(outdir, exist_ok=True)
-    files = [open(os.path.join(outdir, f"ch{i:02d}_{int(round(f))}.s16"),
-                  "wb") for i, f in enumerate(freqs)]
+    files = [open(os.path.join(
+        outdir, f"ch{chan_index0 + i:02d}_{int(round(f))}.s16"), "wb")
+        for i, f in enumerate(freqs)]
     log("rx_channels: %d channels at %.0f S/s audio -> %s",
         len(freqs), float(rate_out2 if rate_out2 > 0 else channel_rate),
         outdir)

@@ -13,8 +13,11 @@ blocks and mutes ``BUFFER_DUMP`` samples after each retune
 the carried state in the reference package's format.  ``RX_PROFILE=<dir>``
 writes a ``torch.profiler`` trace of the run into ``<dir>``.
 
-Not yet ported: ``-E shard`` (offline time sharding over several devices)
-logs one line and exits 1; it waits for the port's ``parallel/`` slice.
+``-E shard`` runs the offline time-sharded chain (``parallel/timeshard.py``)
+over this process's devices (``device.local_devices``), or over every
+process's in a multi-process job (``parallel/multihost.py``: the reference
+package's ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
+``JAX_PROCESS_ID``), where only the primary writes.
 
 Run: ``python -m rx_tools_tpu_torch.apps.rx_fm -f 100.3M -M wbfm
 -d synth=fm,audio=1k out.raw``.
@@ -23,10 +26,12 @@ Run: ``python -m rx_tools_tpu_torch.apps.rx_fm -f 100.3M -M wbfm
 from __future__ import annotations
 
 import getopt
+import math
 import os
 import sys
 
 import numpy as np
+import torch
 
 from rx_tools_tpu_torch import ops
 from rx_tools_tpu_torch.apps import common
@@ -170,6 +175,109 @@ def _run_int_audio(cfg, src, out, device, max_blocks: int = 0) -> None:
             done += 1
             if max_blocks and done >= max_blocks:
                 return
+
+
+def _run_offline_sharded(cfg, src, out, device, warmup: int = 2) -> None:
+    """Offline demod over a mesh (``-E shard``): the capture streams through
+    in super-chunks of S x M blocks, each split into S contiguous time
+    shards with overlap-save halo warm-up (``parallel/timeshard.py`` has the
+    seam semantics: FIR state exact, linear IIR state carried in closed
+    form).  Host memory is bounded by one super-chunk (``RX_SHARD_BLOCKS``
+    sets M; default ~128 MB), the reference's fixed-block streaming
+    (``rtl_fm.c:80-88``) lifted to the mesh: super-chunk k+1's shard 0 takes
+    super-chunk k's trailing blocks as its halo and its exact IIR carry.
+    The tail that does not fill a super-chunk is replayed on one device
+    with the same halo, so output order and emission grid match the
+    streaming runner's.
+
+    Several processes: the mesh spans every process's devices, rank-major;
+    every process reads the same file or synth source in lockstep and runs
+    its own shards, and only the primary writes (so N processes give the
+    bytes of one process at the same total device count)."""
+    from rx_tools_tpu_torch.device import local_devices
+    from rx_tools_tpu_torch.iq.sources import FileSource, SynthSource
+    from rx_tools_tpu_torch.parallel import multihost, time_sharded_fm
+    from rx_tools_tpu_torch.parallel.mesh import Mesh
+    from rx_tools_tpu_torch.parallel.timeshard import (exact_iir_supported,
+                                                       resampler_modulus)
+    from rx_tools_tpu_torch.stream.scan import scan_fm_blocks, stack_blocks
+
+    n_proc = multihost.process_count()
+    if n_proc > 1 and not isinstance(src, (FileSource, SynthSource)):
+        log("-E shard: multi-process runs need a deterministic replayable "
+            "source (file=/synth=); hardware sources are single-process.")
+        raise SystemExit(1)
+    mesh = (multihost.global_mesh("t") if n_proc > 1
+            else Mesh(tuple(local_devices(device)), "t"))
+    primary = multihost.is_primary()
+    bs = fmchain.block_samples(cfg)
+    s = mesh.size
+    m = int(os.environ.get("RX_SHARD_BLOCKS", "0"))
+    if m <= 0:
+        m = max(warmup + 1, (1 << 25) // (bs * 4))   # ~128 MB a super-chunk
+    fmod = resampler_modulus(cfg)
+    done = 0                      # global blocks emitted so far
+    tail_halo = None              # trailing `warmup` blocks of prev chunk
+    iir_carry = None              # exact (deemph avg, resamp acc, dc avg)
+    st = None                     # carried state once on the tail path
+    logged = False
+
+    def emit(audio, n_valid):
+        if primary:
+            for i in range(audio.shape[0]):
+                out.write(fmchain.audio_to_int16(
+                    audio[i, : int(n_valid[i])]).tobytes())
+
+    for iq in _iter_pieces(src, s * m * 2 * bs):
+        if iq.size == s * m * 2 * bs and s > 1 and m > warmup:
+            # ---- sharded super-chunk ----------------------------------
+            if not logged:
+                log("Sharding super-chunks of %d blocks over %d devices "
+                    "(%d per shard).", s * m, s, m)
+                logged = True
+            blocks = iq.reshape(s * m, 2 * bs)
+            if tail_halo is None:
+                audio, n_valid, carry = time_sharded_fm(
+                    cfg, blocks.reshape(s, m, -1), mesh=mesh, warmup=warmup)
+            else:
+                audio, n_valid, carry = time_sharded_fm(
+                    cfg, blocks.reshape(s, m, -1), mesh=mesh, warmup=warmup,
+                    cont=True, halo0=tail_halo,
+                    block_offset_mod=done % fmod, iir_carry=iir_carry)
+            audio, n_valid = audio.cpu().numpy(), n_valid.cpu().numpy()
+            iir_carry = carry[-1].cpu()
+            emit(audio.reshape(s * m, -1), n_valid.reshape(-1))
+            tail_halo = blocks[-warmup:].copy()
+            done += s * m
+            continue
+        # ---- tail (or capture too short, or one device): stream it -----
+        blocks = stack_blocks(iq, bs)   # partial block dropped, like the
+        if not blocks.shape[0]:         # streaming runner (chunked.py)
+            continue
+        if st is None:
+            st = fmchain.init_state(cfg, device)
+            if done and cfg.rate_out2 > 0:
+                apb = bs // cfg.downsample // cfg.post_downsample
+                slow = cfg.rate_out2 // math.gcd(cfg.rate_out, cfg.rate_out2)
+                st = st._replace(resamp=st.resamp._replace(phase=torch.tensor(
+                    ((done - warmup) * apb * slow) % fmod, dtype=torch.int32,
+                    device=st.prev_iq.device)))
+            if done:                    # halo warm-up from the prev chunk
+                st, _, _, _ = scan_fm_blocks(cfg, st, tail_halo)
+                if iir_carry is not None and exact_iir_supported(cfg):
+                    # the exact IIR seam: the sharded run's carry replaces
+                    # the warm-up's deemph avg, window sum and DC average
+                    dev = st.prev_iq.device
+                    st = st._replace(
+                        deemph_avg=iir_carry[0].to(dev),
+                        dc_avg=iir_carry[2].to(dev),
+                        resamp=st.resamp._replace(acc=iir_carry[1].to(dev)))
+        # fixed-size sub-chunks, as the reference CLI replays its tail;
+        # every process replays it (deterministic), only the primary emits
+        for j in range(0, blocks.shape[0], 8):
+            st, audio, n_valid, _ = scan_fm_blocks(cfg, st,
+                                                   blocks[j: j + 8])
+            emit(audio.cpu().numpy(), n_valid.cpu().numpy())
 
 
 def _close(src, out) -> None:
@@ -319,11 +427,14 @@ def main(argv=None) -> int:
         log("--checkpoint/--resume support single-frequency streaming runs "
             "only (no scanning, no -E shard).")
         return 1
-    if "shard" in enables:
-        log("rx_fm: -E shard is not yet ported to rx_tools_tpu_torch (it "
-            "waits for the parallel/ slice).")
-        return 1
     device = resolve_device()
+    # the process group (a no-op single-process; parallel/multihost.py)
+    from rx_tools_tpu_torch.parallel import multihost
+    try:
+        multihost.init()
+    except RuntimeError as e:
+        log("rx_fm: %s", str(e))
+        return 1
 
     offset_tuning = "offset" in enables or bandwidth > 0
     edge = 1 if "edge" in enables else 0
@@ -414,7 +525,7 @@ def main(argv=None) -> int:
     # --- bit-exact integer audio tier (--int-audio) -----------------------
     if int_audio:
         from rx_tools_tpu_torch.models import fmint
-        if len(freqs) > 1:
+        if len(freqs) > 1 or "shard" in enables:
             log("--int-audio is a single-frequency offline tier "
                 "(no scanning, no -E shard).")
             return 1
@@ -427,6 +538,20 @@ def main(argv=None) -> int:
             src.activate()
         try:
             _run_int_audio(cfg, src, out, device, max_blocks)
+        finally:
+            _close(src, out)
+        return 0
+
+    # --- offline sharded mode (-E shard): the time axis over the mesh ----
+    if "shard" in enables:
+        if len(freqs) > 1 or squelch_level > 0:
+            log("-E shard is an offline single-frequency mode "
+                "(no squelch/scan).")
+            return 1
+        with common.suppress_stdout():
+            src.activate()
+        try:
+            _run_offline_sharded(cfg, src, out, device)
         finally:
             _close(src, out)
         return 0

@@ -21,10 +21,16 @@ everything on the CPU.
 Two-stage SIGINT kept (``rtl_power.c:175-204``): first ^C finishes the
 current pass and flushes, second aborts mid-sweep.
 
-One card: ``-t N`` resolves to one device, as the reference package does on
-a host with one device, and a sweep divided over several processes waits
-for the port's ``parallel/`` slice (such an environment logs one line and
-exits 1).
+Scaling, as in the reference package: ``-t N`` shards the hop rows over N
+of this process's devices (``parallel/hopshard.py``; default all of
+``device.local_devices()``, one on a one-card host), the rows padded to a
+multiple of the mesh and the pad rows never flushed; a multi-process job
+(``parallel/multihost.py``, the reference package's
+``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``)
+gives each process its own contiguous slice of the tune table, single-sources
+the flush and stop decisions from the primary, gathers the accumulators at
+each flush (int64 exactly for ``--int-fft``) and lets only the primary write
+the CSV.
 
 Run: ``python -m rx_tools_tpu_torch.apps.rx_power -f 88M:108M:125k -1
 -d synth=tone,carrier=100.3M sweep.csv``.
@@ -41,8 +47,7 @@ import numpy as np
 import torch
 
 from rx_tools_tpu_torch.apps import common
-from rx_tools_tpu_torch.apps.common import multi_process_env
-from rx_tools_tpu_torch.device import resolve_device
+from rx_tools_tpu_torch.device import local_devices, resolve_device
 from rx_tools_tpu_torch.models import powerscan
 from rx_tools_tpu_torch.models.power_plan import plan_sweep, describe_plan
 from rx_tools_tpu_torch.utils.logging import log
@@ -122,6 +127,7 @@ def main(argv=None) -> int:
     checkpoint_path = None
     resume_path = None
     int_fft = False
+    dev_parallel = 0            # 0 = all local devices
 
     for opt, arg in opts:
         if opt == "-f":
@@ -160,9 +166,9 @@ def main(argv=None) -> int:
             tuner_retry_max = int(arg)
         elif opt == "-t":
             # the reference parses '-t fft_threads' and never uses it
-            # (rtl_power.c:899-901 dead flag); the reference package shards
-            # hops over min(N, local devices) — one card here
-            int(arg)
+            # (rtl_power.c:899-901 dead flag); here it selects how many
+            # devices the hop axis shards over
+            dev_parallel = int(arg)
         elif opt == "--checkpoint":
             checkpoint_path = arg
         elif opt == "--resume":
@@ -187,12 +193,28 @@ def main(argv=None) -> int:
     for line in describe_plan(tunes):
         log("%s", line)
 
-    if multi_process_env():
-        log("rx_power: multi-process sweeps are not yet ported to "
-            "rx_tools_tpu_torch (they wait for the parallel/ slice).")
-        return 1
     device = resolve_device()
-    n_proc, pid = 1, 0
+    from rx_tools_tpu_torch.parallel import multihost
+    try:
+        pid = multihost.init()
+    except RuntimeError as e:
+        log("rx_power: %s", str(e))
+        return 1
+
+    # --- multi-process sweep division ---------------------------------------
+    # each process retunes, reads and integrates only its own contiguous
+    # slice of the tune table; the primary stitches the gathered
+    # accumulators into the CSV (the reference's serial hop loop,
+    # rtl_power.c:670-772, divided across processes)
+    n_proc = multihost.process_count()
+    hops_per_proc = len(tunes)
+    my_tunes = tunes
+    if n_proc > 1:
+        hops_per_proc = -(-len(tunes) // n_proc)       # uniform across procs
+        my_lo = pid * hops_per_proc
+        my_tunes = tunes[my_lo: my_lo + hops_per_proc]
+        log("Multi-process sweep: process %d/%d owns hops %d..%d of %d.",
+            pid, n_proc, my_lo, my_lo + len(my_tunes) - 1, len(tunes))
 
     # two-stage SIGINT (rtl_power.c:175-204)
     bail = [0]
@@ -245,8 +267,23 @@ def main(argv=None) -> int:
             except ValueError as e:
                 log("%s", str(e))
                 return 1
+        else:
+            dev_parallel = 1  # giant-bin path accumulates host-side
 
-    h_pad = len(tunes)
+    # --- hop-axis sharding over this process's devices ----------------------
+    # every device integrates its own hop rows; the accumulators stay on
+    # their devices until a flush reads them (parallel/hopshard.py)
+    devs = local_devices(device)
+    want = len(devs) if dev_parallel <= 0 else min(dev_parallel, len(devs))
+    n_mesh = max(1, min(want, hops_per_proc))
+    mesh = None
+    h_pad = hops_per_proc
+    if n_mesh > 1:
+        from rx_tools_tpu_torch.parallel import make_mesh
+        mesh = make_mesh(n_mesh, axis="h", devices=devs)
+        h_pad = -(-hops_per_proc // n_mesh) * n_mesh  # rows: mesh multiple
+        log("Sharding %d hops over %d devices (%d rows incl. padding).",
+            len(my_tunes), n_mesh, h_pad)
     acc = powerscan.new_sweep_accum(h_pad, cfg, device)
     if int_fft:
         iavg = np.zeros((h_pad, cfg.bin_len), np.int64)
@@ -287,6 +324,8 @@ def main(argv=None) -> int:
         if checkpoint_path is None:
             return
         from rx_tools_tpu_torch.stream.checkpoint import save_checkpoint
+        if hasattr(a, "gathered"):
+            a = a.gathered()         # one file layout, sharded or not
         save_checkpoint(checkpoint_path, a, meta=ckpt_meta)
 
     start = time.time()
@@ -301,16 +340,20 @@ def main(argv=None) -> int:
         src.activate()
     try:
         while True:
-            # one sweep: retune + read every hop on the host, then
-            # integrate them all in one batched device step
+            # one sweep: retune + read this process's hops on the host, then
+            # integrate them in one batched (and hop-sharded) device step;
+            # pad rows stay zero, never flushed
             blocks = np.zeros((h_pad, t0.buf_len), np.int16)
-            aborted, reads = read_sweep(src, tunes, blocks, bail,
+            aborted, reads = read_sweep(src, my_tunes, blocks, bail,
                                         tuner_sleep_usec, tuner_retry_max)
             hop_reads += reads
             if not aborted:
                 sweep_passes += 1
                 if int_fft:
-                    _int_sweep(cfg, blocks, iavg, isamples, device)
+                    _int_sweep(cfg, blocks, iavg, isamples, device, mesh)
+                elif mesh is not None:
+                    from rx_tools_tpu_torch.parallel import hop_sharded_sweep
+                    acc = hop_sharded_sweep(cfg, acc, blocks, mesh)
                 else:
                     acc = powerscan.sweep_step(cfg, acc, blocks)
                 save_ckpt(powerscan.SweepAccum(iavg, isamples)
@@ -319,15 +362,23 @@ def main(argv=None) -> int:
             want_flush = bool(now >= next_tick or single or bail[0])
             want_stop = bool(single or bail[0]
                              or (exit_timer and now - start >= exit_timer))
+            if n_proc > 1:
+                # control decisions single-sourced from the primary, so
+                # every process enters the flush gather in lockstep (the
+                # controller-thread pattern of rtl_fm.c:999-1050)
+                f = multihost.broadcast_flags(
+                    np.array([int(want_flush), int(want_stop)], np.int32))
+                want_flush, want_stop = bool(f[0]), bool(f[1])
             if want_flush:
                 if int_fft:
                     _flush_csv(out, tunes, cfg,
-                               powerscan.SweepAccum(iavg, isamples))
+                               powerscan.SweepAccum(iavg, isamples),
+                               hops_per_proc)
                     iavg[:] = 0
                     isamples[:] = 0
                     save_ckpt(powerscan.SweepAccum(iavg, isamples))
                 else:
-                    _flush_csv(out, tunes, cfg, acc)
+                    _flush_csv(out, tunes, cfg, acc, hops_per_proc)
                     acc = powerscan.new_sweep_accum(h_pad, cfg, device)
                     save_ckpt(acc)     # persist the post-flush reset too
                 while next_tick <= now:
@@ -336,7 +387,7 @@ def main(argv=None) -> int:
                 break
     finally:
         log("Sweep summary: %d passes, %d hop reads (%d hops owned of %d).",
-            sweep_passes, hop_reads, len(tunes), len(tunes))
+            sweep_passes, hop_reads, len(my_tunes), len(tunes))
         src.deactivate()
         src.close()
         if out is not sys.stdout.buffer:
@@ -367,10 +418,10 @@ def read_sweep(src, tunes, blocks, bail, sleep_usec, retry_max):
     return False, reads
 
 
-def _int_sweep(cfg, blocks, iavg, isamples, device) -> None:
-    """``--int-fft``: bit-exact per-segment powers on the device, reduced
-    over segments there in int64 (exact) and added into the host int64
-    accumulators in place."""
+def _int_sweep(cfg, blocks, iavg, isamples, device, mesh=None) -> None:
+    """``--int-fft``: bit-exact per-segment powers on the device (sharded
+    over ``mesh`` when given), reduced over segments there in int64 (exact)
+    and added into the host int64 accumulators in place."""
     h = blocks.shape[0]
     if cfg.bin_e == 0:
         from rx_tools_tpu_torch.ops.intfft import rms_power_int
@@ -380,7 +431,11 @@ def _int_sweep(cfg, blocks, iavg, isamples, device) -> None:
                 else iavg[i, 0] + p
             isamples[i] += 1
         return
-    p = powerscan.int_sweep_powers(cfg, blocks, device)
+    if mesh is not None:
+        from rx_tools_tpu_torch.parallel.hopshard import int_hop_sharded
+        p = int_hop_sharded(cfg, blocks, mesh)
+    else:
+        p = powerscan.int_sweep_powers(cfg, blocks, device)
     if cfg.peak_hold:
         iavg[:] = np.maximum(iavg, p.amax(dim=1).cpu().numpy())
     else:
@@ -403,11 +458,21 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def _flush_csv(out, tunes, cfg, acc) -> None:
+def _flush_csv(out, tunes, cfg, acc, hops_per_proc=None) -> None:
     """Timestamped CSV rows per hop (rtl_power.c:1041-1051, 774-817): the
-    accumulators' one copy back from the device."""
+    accumulators' one copy back from the device(s).  In a multi-process job
+    every process calls this (the gather is collective): process p owns the
+    hop rows [p*hops_per_proc, (p+1)*hops_per_proc); only the primary
+    writes."""
+    from rx_tools_tpu_torch.parallel import multihost
     avg = _host(acc.avg)
     samples = _host(acc.samples)
+    if multihost.process_count() > 1:
+        per = hops_per_proc
+        gather = (multihost.allgather_exact_i64 if avg.dtype == np.int64
+                  else multihost.allgather)
+        avg = gather(avg[:per]).reshape(-1, avg.shape[-1])
+        samples = gather(samples[:per]).reshape(-1)
     stamp = time.strftime("%Y-%m-%d, %H:%M:%S")
     lines = []
     for i, t in enumerate(tunes):
@@ -415,8 +480,10 @@ def _flush_csv(out, tunes, cfg, acc) -> None:
             avg[i], int(samples[i]), cfg, t.freq, t.rate, t.crop)
         vals = ", ".join("%.2f" % d for d in dbms)
         lines.append(f"{stamp}, {lo}, {hi}, {step:.2f}, {s}, {vals}\n")
-    out.write("".join(lines).encode() if _binary(out) else "".join(lines))
-    out.flush()
+    if multihost.is_primary():
+        out.write("".join(lines).encode() if _binary(out)
+                  else "".join(lines))
+        out.flush()
 
 
 def _binary(f) -> bool:

@@ -29,3 +29,18 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def local_devices(device: str | torch.device | None = None
+                  ) -> list[torch.device]:
+    """This process's devices, the ones a mesh may span: every visible
+    CUDA card (``torch.cuda.device_count()``), or on a CPU request
+    ``JAX_NUM_CPU_DEVICES`` entries of ``cpu`` (default 1) — the variable
+    of the reference package's ``jax_num_cpu_devices`` option, so one
+    environment gives both packages the same device count."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    n = os.environ.get("JAX_NUM_CPU_DEVICES", "").strip()
+    return [torch.device("cpu")] * max(1, int(n) if n else 1)

@@ -420,3 +420,104 @@ def test_batch_resampler_forms_on_card(cuda, fast, slow):
             np.testing.assert_allclose(st_p.acc.cpu().numpy(),
                                        acc.cpu().numpy(), rtol=1e-4, atol=0.5)
         assert torch.equal(st_p.phase.cpu(), st_c.phase)
+
+
+@pytest.mark.parametrize("dc", [False, True])
+def test_time_sharded_on_card(cuda, tf32_on, dc):
+    """``time_sharded_fm`` on ``[cuda] * 4`` (the one card runs the four
+    shards in turn): a first super-chunk and a continuation against the
+    unsharded scan on the card (same counts, tests/test_parallel.py:60's
+    rtol 1e-4 / atol 0.1) and against the same calls on the CPU."""
+    from rx_tools_tpu_torch.models import fmchain
+    from rx_tools_tpu_torch.parallel import make_mesh, time_sharded_fm
+    from rx_tools_tpu_torch.parallel.timeshard import resampler_modulus
+    from rx_tools_tpu_torch.stream.scan import scan_fm_blocks, stack_blocks
+    s_n, m, warmup = 4, 4, 2
+    cfg = fmchain.FmConfig(mode="fm", rate_in=170000, rate_out=170000,
+                           rate_out2=32000, downsample=6, custom_atan=1,
+                           deemph_a=7, dc_block_audio=dc)
+    n = fmchain.block_samples(cfg, target=8192)
+    rng = np.random.default_rng(4)
+    blocks = stack_blocks(rng.integers(-3000, 3000, 2 * 2 * s_n * m * n)
+                          .astype(np.int16), n)
+    fmod = resampler_modulus(cfg)
+
+    def sharded(devs):
+        mesh = make_mesh(devices=devs)
+        a1, nv1, c1 = time_sharded_fm(cfg, blocks[: s_n * m].reshape(
+            s_n, m, -1), mesh=mesh, warmup=warmup)
+        a2, nv2, _ = time_sharded_fm(
+            cfg, blocks[s_n * m:].reshape(s_n, m, -1), mesh=mesh,
+            warmup=warmup, cont=True, halo0=blocks[s_n * m - warmup: s_n * m],
+            block_offset_mod=(s_n * m) % fmod, iir_carry=c1[-1])
+        a = torch.cat([a1.reshape(s_n * m, -1), a2.reshape(s_n * m, -1)])
+        nv = torch.cat([nv1.reshape(-1), nv2.reshape(-1)])
+        assert a.device.type == devs[0].type
+        return a.cpu().numpy(), nv.cpu().numpy()
+
+    def flat(a, nv):
+        return np.concatenate([a[i, : nv[i]] for i in range(len(nv))])
+
+    got, got_nv = sharded([cuda] * s_n)
+    cpu, cpu_nv = sharded([torch.device("cpu")] * s_n)
+    _, ref, ref_nv, _ = scan_fm_blocks(cfg, fmchain.init_state(cfg, cuda),
+                                       blocks)
+    ref, ref_nv = ref.cpu().numpy(), ref_nv.cpu().numpy()
+    np.testing.assert_array_equal(got_nv, ref_nv)
+    np.testing.assert_array_equal(got_nv, cpu_nv)
+    np.testing.assert_allclose(flat(got, got_nv), flat(ref, ref_nv),
+                               rtol=1e-4, atol=0.1)
+    np.testing.assert_allclose(flat(got, got_nv), flat(cpu, cpu_nv),
+                               rtol=1e-4, atol=0.1)
+
+
+def test_hop_sharded_on_card(cuda):
+    """Hop sharding on ``[cuda] * 2`` at BASELINE config #5's sweep shape:
+    float avg at rtol 1e-6 with samples equal to the unsharded step on the
+    card; ``--int-fft`` bit for bit."""
+    from rx_tools_tpu_torch.models import powerscan
+    from rx_tools_tpu_torch.parallel import hop_sharded_sweep, make_mesh
+    from rx_tools_tpu_torch.parallel.hopshard import int_hop_sharded
+    cfg = powerscan.PowerConfig(bin_e=9, buf_len=16384)
+    mesh = make_mesh(devices=[cuda] * 2, axis="h")
+    rng = np.random.default_rng(9)
+    acc_s = acc_u = powerscan.new_sweep_accum(402, cfg, cuda)
+    for _ in range(2):
+        blocks = rng.integers(-20000, 20000, (402, 16384)).astype(np.int16)
+        acc_s = hop_sharded_sweep(cfg, acc_s, blocks, mesh)
+        acc_u = powerscan.sweep_step(cfg, acc_u, blocks)
+    assert all(p.avg.device.type == cuda.type for p in acc_s.parts)
+    np.testing.assert_allclose(acc_s.avg.cpu().numpy(),
+                               acc_u.avg.cpu().numpy(), rtol=1e-6)
+    assert torch.equal(acc_s.samples, acc_u.samples)
+    assert torch.equal(int_hop_sharded(cfg, blocks, mesh),
+                       powerscan.int_sweep_powers(cfg, blocks, cuda))
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_channel_sharded_pfb_on_card(cuda, tf32_on, shards):
+    """Channel sharding on ``[cuda] * k`` at D = 64 against ``pfb_step`` on
+    the card over 3 chained blocks, with TF32 allowed in the process (the
+    step switches it off): counts and resampler phases exact, audio and
+    float state at the PFB bound (tests/test_pfb.py:174)."""
+    from rx_tools_tpu_torch.models import pfb
+    from rx_tools_tpu_torch.parallel import channel_sharded_pfb_step, make_mesh
+    fs = 2_400_000
+    cfg = pfb.PfbConfig(capture_rate=fs, n_channels=64, mode="fm",
+                        custom_atan=1, deemph_a=7, rate_out2=32_000)
+    n = pfb.block_samples(cfg, target=131072)
+    iq = _fm_scene(fs, 3 * n, (-300_000.0, 37_500.0, 412_500.0))
+    mesh = make_mesh(devices=[cuda] * shards, axis="c")
+    st_s, st_u = pfb.init_state(cfg, cuda), pfb.init_state(cfg, cuda)
+    for b in range(3):
+        blk = iq[b * 2 * n: (b + 1) * 2 * n]
+        st_s, a_s, nv_s = channel_sharded_pfb_step(cfg, st_s, blk, mesh)
+        st_u, a_u, nv_u = pfb.pfb_step(cfg, st_u, blk)
+        assert a_s.device.type == cuda.type
+        assert torch.equal(nv_s, nv_u)
+        _scaled_close(a_s, a_u, 2e-4)
+    assert torch.equal(st_s.resamp.phase, st_u.resamp.phase)
+    for got, want in ((st_s.tail, st_u.tail), (st_s.prev_iq, st_u.prev_iq),
+                      (st_s.deemph_avg, st_u.deemph_avg),
+                      (st_s.resamp.acc, st_u.resamp.acc)):
+        _scaled_close(got, want, 2e-4)

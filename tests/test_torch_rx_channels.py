@@ -4,6 +4,8 @@ the reference tests' geometries (1.024 Msps, ``-n 16``, ``-k`` with ``-D
 count in every channel and, for the same engine, PCM within 1 LSB on
 every channel (the float-chain bar of tools/tpu_e2e.py)."""
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -201,9 +203,17 @@ def test_chunked_dispatch_identical_to_per_block(sel, tmp_path, monkeypatch):
     {"TPU_WORKER_HOSTNAMES": "a,b"},
 ], ids=["coordinator", "pod"])
 def test_multi_process_env_exits_1(env, monkeypatch, capsys, tmp_path):
+    """A configured job that cannot be set up (no peer within the bounded
+    set-up timeout, or a pod list with no coordinator) exits 1 and writes
+    no channel file."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    monkeypatch.setenv("RX_DIST_TIMEOUT", "2")
     out = tmp_path / "o"
+    t0 = time.monotonic()
     assert rx_channels.main(BASE + ["-n", "16", "-d", PFB_SRC, str(out)]) == 1
-    assert "parallel/" in capsys.readouterr().err
+    assert time.monotonic() - t0 < 60
+    err = capsys.readouterr().err
+    assert ("could not join" in err if "JAX_COORDINATOR_ADDRESS" in env
+            else "without a coordinator address" in err), err[-500:]
     assert not out.exists()

@@ -11,6 +11,7 @@ more than the FFTs' rounding); ``-inf`` exactly where the reference has
 ``-inf``."""
 
 import shutil
+import time
 
 import numpy as np
 import pytest
@@ -23,6 +24,7 @@ from rx_tools_tpu_torch.apps import rx_heatmap, rx_power
 from rx_tools_tpu_torch.iq.sources import make_source
 from rx_tools_tpu_torch.models import powerscan
 from rx_tools_tpu_torch.models.power_plan import plan_sweep
+from rx_tools_tpu_torch.parallel import multihost
 from rx_tools_tpu_torch.ops import windows
 from rx_tools_tpu_torch.stream import checkpoint
 from rx_tools_tpu_torch.utils.units import atofs
@@ -223,23 +225,33 @@ def test_int_fft_refuses_fir_path(tmp_path):
     {"TPU_WORKER_HOSTNAMES": "a,b"},
 ], ids=["coordinator", "pod"])
 def test_multi_process_env_exits_1(env, monkeypatch, capsys, tmp_path):
+    """A job the environment configures but that cannot be set up exits 1
+    within the bounded set-up timeout and writes nothing: a coordinator
+    whose peer never comes, a pod list with no coordinator.  It never
+    carries on as one process."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    monkeypatch.setenv("RX_DIST_TIMEOUT", "2")
+    t0 = time.monotonic()
     rc = rx_power.main(["-f", "100M:106M:20k", "-1", "-d", SRC,
                         str(tmp_path / "x.csv")])
     assert rc == 1
-    assert "parallel/" in capsys.readouterr().err
+    assert time.monotonic() - t0 < 60
+    err = capsys.readouterr().err
+    assert ("could not join" in err if "JAX_COORDINATOR_ADDRESS" in env
+            else "without a coordinator address" in err), err[-500:]
     assert not (tmp_path / "x.csv").exists()
 
 
 def test_single_process_env_runs(monkeypatch):
     monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "localhost")
-    assert not rx_power.multi_process_env()
+    assert not multihost.multi_process_env()
     monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
     monkeypatch.setenv("JAX_NUM_PROCESSES", "1")
-    assert not rx_power.multi_process_env()
+    assert not multihost.multi_process_env()
+    assert multihost.init() == 0 and multihost.process_count() == 1
     monkeypatch.setenv("JAX_NUM_PROCESSES", "3")
-    assert rx_power.multi_process_env()
+    assert multihost.multi_process_env()
 
 
 # ---------------------------------------------------------------------------
