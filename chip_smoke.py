@@ -38,8 +38,14 @@ Phases, in order:
 5. the CLI: ``rx_fm -M wbfm`` on a synth source, 64 blocks — K1 must
    launch, the tone must come back;
 6. ``int_deemph`` (the integer tier's de-emphasis, a port-only kernel)
-   bit for bit against its host walk at the wbfm block (1368 samples),
-   timed;
+   bit for bit against its host walk at the wbfm block (1368 samples), on
+   each input class: uniform noise at a = 13 (the kernels line's time,
+   on the inputs it has always had), one sample, the 64 real
+   ``--int-audio`` blocks of phase 7's wbfm synth (``models/fmint.py``
+   stepped as the CLI sets it up; phase 7 holds its PCM to the CLI's
+   bytes), silence, a = 75 and a = 2, and the 64-bit walk; one
+   JSON line a class with its CUDA-event time, the segment plan (S, L, W)
+   and the segments and samples the ordered fallback walked;
 7. the CLI paths of the rest of rx_fm, each on the card and then on the
    CPU from the same seeded synth (same PCM count, at most 1 LSB apart):
    BASELINE config #2 (``-M nbfm -s 96k -r 48k -F 9 -l 10``, D = 16 in 4
@@ -47,11 +53,11 @@ Phases, in order:
    -E offset``, D = 42, K1 launched with ``rotate=False``, 600 Hz back) and
    again with ``-E rdc``; ``-E hq`` at the wbfm preset; ``--int-audio`` at
    the wbfm preset (card bytes identical to CPU bytes, ``int_deemph``
-   launched); ``-b 1`` against the chunked runner (identical bytes); an
-   interrupted run with ``--checkpoint`` resumed with ``--resume``
-   (identical to an uninterrupted run; the card's checkpoint loads on the
-   CPU); scanning two ``-f`` with ``-l``, the first silent (a hop counted,
-   audio emitted);
+   launched, the card's wall time printed); ``-b 1`` against the chunked
+   runner (identical bytes); an interrupted run with ``--checkpoint``
+   resumed with ``--resume`` (identical to an uninterrupted run; the
+   card's checkpoint loads on the CPU); scanning two ``-f`` with ``-l``,
+   the first silent (a hop counted, audio emitted);
 8. rx_power (no hand-written kernel on its path: the float tier's FFT is
    cuFFT through ``torch.fft``, ``--int-fft`` int32 torch ops), each CLI
    run on the card and then on the CPU from one seeded synth, the rows
@@ -1316,6 +1322,52 @@ def parallel_phase(dev, cfg, synth, counted, tmp):
     return sum(d["k1"] for r in two + one for d in r.values())
 
 
+WBFM_SYNTH = ("synth=fm,audio=1k,dev=50k,amp=0.8,noise=0.001,seed=3,"
+              "carrier=100.3M")
+WBFM_BLOCKS = 64
+
+
+def int_audio_deemph_calls(dev):
+    """The ``int_deemph`` calls of ``rx_fm -f 100.3M -M wbfm -d WBFM_SYNTH
+    --blocks 64 --int-audio`` as ``(avg, x, a)`` on ``dev``, and the PCM
+    the chain emits: ``models/fmint.py`` stepped block by block (demod and
+    seam patch, then the audio post), set up as the CLI sets up the wbfm
+    preset.  Phase 7 holds this PCM to the CLI's bytes, so these calls are
+    the CLI's."""
+    import numpy as np
+    from rx_tools_tpu_torch import ops
+    from rx_tools_tpu_torch.apps import rx_fm
+    from rx_tools_tpu_torch.iq.sources import make_source
+    from rx_tools_tpu_torch.models import fmchain, fmint
+    from rx_tools_tpu_torch.stream.scan import stack_blocks
+
+    rate = 170_000                       # -M wbfm: -s 170k -A fast -r 32k
+    cfg, freq, capture_rate = fmchain.plan_capture(fmchain.FmConfig(
+        rate_in=rate, rate_out=rate, rate_out2=AUDIO_RATE, downsample=1,
+        custom_atan=ops.DISC_FAST, deemph_a=ops.deemph_alpha(rate, 75)),
+        STATION + 16_000)                # the preset's tuning offset
+    if cfg.post_downsample != 1:         # else x is the low-passed result
+        fail(f"wbfm planned post_downsample {cfg.post_downsample}, not 1")
+    src = make_source(WBFM_SYNTH)
+    src.set_sample_rate(capture_rate)
+    src.set_frequency(freq)
+    src.activate()
+    bs = fmchain.block_samples(cfg)
+    st, calls, pcm = fmint.init_state(dev), [], []
+    for iq in rx_fm._iter_pieces(src, 8 * 2 * bs):
+        for block in stack_blocks(iq, bs)[:WBFM_BLOCKS - len(calls)]:
+            st, x = fmint.demod_block(cfg, st, block)
+            calls.append((st.deemph_avg.clone(), x.clone(), cfg.deemph_a))
+            st, audio, n = fmint._post(cfg, st, x)
+            pcm.append(audio[:int(n)].cpu().numpy().astype(np.int16))
+        if len(calls) == WBFM_BLOCKS:
+            break
+    src.close()
+    if len(calls) != WBFM_BLOCKS:
+        fail(f"the wbfm synth gave {len(calls)} blocks, not {WBFM_BLOCKS}")
+    return calls, np.concatenate(pcm)
+
+
 def main():
     import numpy as np
     import torch
@@ -1651,27 +1703,70 @@ def main():
 
     # ---- phase 6: int_deemph against its plain version --------------------
     kpb_int = 8208 // 6                  # the wbfm block after the boxcar
+
+    def deemph_class(what, cases):
+        """Each call bit for bit against the host walk, the segments the
+        ordered fallback walked, and the CUDA-event time over the calls."""
+        fb_sum = [0, 0]
+        for a, x, da in cases:
+            fb = torch.zeros(2, dtype=torch.int32, device=dev)
+            p = plan.deemph_plan(x.numel(), da)
+            ga, gy = intaudio._launch_deemph(a, x, da, p.seg_len, p.halo, fb)
+            pa, py = intaudio.deemph_int_plain(a.cpu(), x.cpu(), da)
+            torch.cuda.synchronize()
+            if int(ga) != int(pa) or not torch.equal(gy.cpu(), py):
+                fail(f"int_deemph differs from its plain version on {what} "
+                     f"(n {x.numel()}, a {da}, avg {int(a)})")
+            fb_sum = [fb_sum[0] + int(fb[0]), fb_sum[1] + int(fb[1])]
+        n, da = cases[0][1].numel(), cases[0][2]
+        p = plan.deemph_plan(n, da)
+        ms = time_ms(intaudio.deemph_int, cases)
+        print(json.dumps({"kernel": "int_deemph", "inputs": what,
+                          "calls": len(cases), "n": n, "a": da,
+                          "plan": {"S": p.segments(min(n, plan.DEEMPH_TILE)),
+                                   "L": p.seg_len, "W": p.halo},
+                          "fallback_segments": fb_sum[0],
+                          "fallback_samples": fb_sum[1], "ms": ms,
+                          "bitwise": True}))
+        return ms
+
+    # uniform noise at a = 13 first, the inputs the kernels line's time has
+    # always had (averages in +-40000); then the real --int-audio blocks,
+    # silence, a = 75, a = 2, the 64-bit walk and one sample
     rng = np.random.default_rng(11)
-    dargs = [(torch.tensor(int(a0), dtype=torch.int64, device=dev),
-              torch.as_tensor(rng.integers(-32768, 32767, kpb_int),
-                              device=dev), 13)
-             for a0 in rng.integers(-40000, 40000, 8)]
-    for a, x, da in dargs[:3] + [(dargs[0][0], dargs[0][1][:1], 8)]:
-        ga, gy = intaudio.deemph_int(a, x, da)
-        pa, py = intaudio.deemph_int_plain(a.cpu(), x.cpu(), da)
-        torch.cuda.synchronize()
-        if int(ga) != int(pa) or not torch.equal(gy.cpu(), py):
-            fail(f"int_deemph differs from its plain version (n {x.numel()},"
-                 f" a {da})")
+
+    def on_card(a0):
+        return torch.tensor(int(a0), dtype=torch.int64, device=dev)
+
+    dargs = [(on_card(a0), torch.as_tensor(rng.integers(-32768, 32767,
+                                                        kpb_int), device=dev),
+              13) for a0 in rng.integers(-40000, 40000, 8)]
+    int_calls, int_pcm = int_audio_deemph_calls(dev)
+    silence = torch.zeros(kpb_int, dtype=torch.int64, device=dev)
+    classes = {
+        "uniform noise": dargs,
+        "--int-audio wbfm blocks": int_calls,
+        "silence": [(a, silence, 13) for a, _, _ in dargs],
+        "uniform noise, a = 75": [(a, x, 75) for a, x, _ in dargs],
+        "uniform noise, a = 2": [(a, x, 2) for a, x, _ in dargs],
+        "the 64-bit walk (avg -(2**31 + 5) - k)": [
+            (on_card(-(2 ** 31 + 5) - k), x, 13)
+            for k, (_, x, _) in enumerate(dargs)],
+    }
+    class_ms = {what: deemph_class(what, cases)
+                for what, cases in classes.items()}
+    deemph_class("one sample", [(dargs[0][0], dargs[0][1][:1], 8)])
     host = [(a.cpu(), x.cpu(), da) for a, x, da in dargs]
     t = time.perf_counter()
     for a, x, da in host:
         intaudio.deemph_int_plain(a, x, da)
+    # the plain version is a walk on the host: its wall time, read before
+    # anything else runs (the kernel's timing, with its device sleeps,
+    # stays outside this interval)
+    plain_ms = (time.perf_counter() - t) * 1e3 / len(dargs)
     deemph = dict(
-        fn=intaudio.deemph_int, err=0.0, ms=time_ms(intaudio.deemph_int,
-                                                    dargs),
-        # the plain version is a walk on the host: its wall time
-        plain_ms=(time.perf_counter() - t) * 1e3 / len(dargs),
+        fn=intaudio.deemph_int, err=0.0, ms=class_ms["uniform noise"],
+        plain_ms=plain_ms,
         source="rx_tools_tpu_torch/kernels/csrc/int_deemph.cu",
         replaces="none (port-only; rx_tools_tpu/ops/intaudio.py:158 "
                  "deemph_int is a lax.scan)")
@@ -1687,11 +1782,15 @@ def main():
     path_counts = {name: [main_counts[name], fused_counts[name],
                           cli_counts[name]] for name in counters}
 
+    walls = {}                           # the last wall s, card and CPU
+
     def cli(args, out, cpu=False):
         """``rx_fm`` on the card (or the CPU): (pcm, launches)."""
         with env_var("RX_PLATFORM", "cpu" if cpu else None):
             reset_counts()
+            t = time.perf_counter()
             rc = rx_fm.main(args + [str(out)])
+            walls[cpu] = time.perf_counter() - t
             counts = {k: f.launches for k, f in counters.items()}
         if rc != 0:
             fail(f"rx_fm {' '.join(args)} exited {rc}")
@@ -1709,11 +1808,10 @@ def main():
         if diff > (0 if exact else 1):
             fail(f"{what}: card and CPU PCM differ by {diff} LSB")
         print(f"{what}: {gpu.size} PCM samples, card vs CPU max |diff| "
-              f"{diff} LSB, launches {counts}")
+              f"{diff} LSB, launches {counts}, wall s card "
+              f"{walls[False]:.3f}, CPU {walls[True]:.3f}")
         return gpu, counts
 
-    wbfm_synth = ("synth=fm,audio=1k,dev=50k,amp=0.8,noise=0.001,seed=3,"
-                  "carrier=100.3M")
     with tempfile.TemporaryDirectory() as tmp:
         # BASELINE config #2: NBFM, squelch, fifth-order cascade + droop,
         # rational resampler to 48k (stateful head: plain torch ops)
@@ -1756,14 +1854,17 @@ def main():
                 fail(f"{what}: tone not recovered ({hz} Hz)")
             print(f"  {what} tone {hz:.1f} Hz")
 
-        wbfm = ["-f", "100.3M", "-M", "wbfm", "-d", wbfm_synth,
-                "--blocks", "64"]
+        wbfm = ["-f", "100.3M", "-M", "wbfm", "-d", WBFM_SYNTH,
+                "--blocks", str(WBFM_BLOCKS)]
         pcm, _ = card_vs_cpu("-E hq (wbfm)", wbfm + ["-E", "hq"], tmp)
         print(f"  -E hq tone {tone_hz(pcm):.1f} Hz")
-        _, counts = card_vs_cpu("--int-audio (wbfm)", wbfm + ["--int-audio"],
-                                tmp, exact=True)
+        pcm, counts = card_vs_cpu("--int-audio (wbfm)",
+                                  wbfm + ["--int-audio"], tmp, exact=True)
         if counts["int_deemph"] <= 0:
             fail("--int-audio did not launch int_deemph")
+        if not np.array_equal(pcm, int_pcm):
+            fail("phase 6's stepped --int-audio chain differs from the CLI's "
+                 "bytes: its int_deemph inputs are not the CLI's")
 
         # -b 1 against the chunked runner, and checkpoint/resume, at -s 24k
         # (no de-emphasis, no resampler: every engine gives the same bytes)
@@ -1813,7 +1914,7 @@ def main():
 
         with patched(sources.SynthSource, "set_frequency", counting):
             pcm, counts = cli(["-f", "102.3M", "-f", "100.3M", "-M", "wbfm",
-                               "-l", "20", "-d", wbfm_synth, "--blocks",
+                               "-l", "20", "-d", WBFM_SYNTH, "--blocks",
                                "64"], Path(tmp) / "scan.raw")
         hops = len(tunes) - 1
         hz = tone_hz(pcm) if pcm.size > 4000 else 0.0

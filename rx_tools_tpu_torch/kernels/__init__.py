@@ -38,8 +38,10 @@ _SIGNATURES = {
         "rx_fused_capture_fm_ctas_per_sm": [_I, _I, _I],
     },
     "int_deemph": {
-        # x, y, avg, n, deemph_a, stream
-        "rx_int_deemph": [_P, _P, _P, _LL, _LL, _P],
+        # x, y, avg, fallback, n, deemph_a, magic, shift, seg_len, halo,
+        # stream
+        "rx_int_deemph": [_P, _P, _P, _P, _LL, _LL, ctypes.c_uint, _I, _I, _I,
+                          _P],
     },
 }
 

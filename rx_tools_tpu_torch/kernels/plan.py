@@ -1,4 +1,6 @@
-"""Tile plans of the two CUDA kernels: sizes that depend on D alone.
+"""Plans of the CUDA kernels: the head's and the fused front's tiles,
+which depend on D alone, and the integer de-emphasis's division constants
+and segments, which depend on its constant ``a`` and the block length.
 
 Both kernels (``csrc/capture_head.cu``, ``csrc/fused_capture_fm.cu``) run
 persistent CTAs, each walking a contiguous run of fixed-size tiles of
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 #: shared memory one CTA may use on the H100 (227 KB, as opt-in dynamic
 #: shared memory above 48 KB)
@@ -139,3 +142,67 @@ def fused_tile(p: TilePlan, t: int, k_per_block: int) -> tuple[int, int]:
     local0 = local * p.rows
     return blk * int(k_per_block) + local0, min(p.rows,
                                                 int(k_per_block) - local0)
+
+
+# ---- int_deemph.cu ----------------------------------------------------------
+
+#: samples one tile of ``int_deemph.cu`` stages in shared memory (its kTile)
+DEEMPH_TILE = 4096
+#: most segments a tile is cut into: one walking thread each, four warps
+DEEMPH_MAX_SEGMENTS = 128
+#: the halo covers this many times the steps in which the walks from the
+#: ends of the int16 range typically meet (about a * ln 65536)
+DEEMPH_HALO_MARGIN = 1.6
+
+
+@functools.lru_cache(maxsize=None)
+def div_magic(a: int) -> tuple[int, int]:
+    """``(m, s)`` with ``floor(n / a) == umulhi(2 * n, m) >> s`` for every
+    ``0 <= n < 2**31`` and ``0 < a < 2**31`` (Granlund and Montgomery,
+    Theorem 4.2, with N = 31): ``s = ceil(log2 a)`` and ``m = ceil(2**(31 +
+    s) / a)``, which is below ``2**32``.  ``umulhi`` is the high 32 bits of
+    the 64-bit product; ``2 * n`` fits 32 bits because ``n < 2**31``."""
+    a = int(a)
+    if not 0 < a < 2 ** 31:
+        raise ValueError(f"deemph_a {a} not in 1 .. 2**31 - 1")
+    s = (a - 1).bit_length()
+    return -(-(1 << (31 + s)) // a), s
+
+
+@dataclasses.dataclass(frozen=True)
+class DeemphPlan:
+    magic: int          # m of :func:`div_magic`
+    shift: int          # s of :func:`div_magic`
+    seg_len: int        # samples of a segment (L)
+    halo: int           # samples walked before a segment (W)
+
+    def segments(self, n: int) -> int:
+        """Segments of a tile of ``n`` samples (the kernel cuts each tile
+        the same way)."""
+        return -(-int(n) // self.seg_len)
+
+
+def deemph_halo(a: int) -> int:
+    """Halo of the segmented walk at ``a``: the walks from the two ends of
+    the int16 range meet after about ``a * ln 65536`` samples of audio,
+    with margin.  A halo that does not meet only sends its segment to the
+    ordered fallback, so exactness never rests on it."""
+    return math.ceil(DEEMPH_HALO_MARGIN * int(a) * math.log(65536))
+
+
+@functools.lru_cache(maxsize=None)
+def deemph_plan(n: int, a: int) -> DeemphPlan:
+    """The plan of ``int_deemph.cu`` for blocks of ``n`` samples at ``a``:
+    tiles of up to :data:`DEEMPH_TILE` samples cut into at most
+    :data:`DEEMPH_MAX_SEGMENTS` segments of ``seg_len`` samples, each with
+    a halo of :func:`deemph_halo` samples.  A segment's walk is about halo
+    + seg_len steps against a tile's steps for one serial walk, so where
+    that is not at most half the tile the plan is one segment: the serial
+    walk."""
+    magic, shift = div_magic(a)
+    tile = max(1, min(int(n), DEEMPH_TILE))
+    halo = deemph_halo(a)
+    seg_len = -(-tile // DEEMPH_MAX_SEGMENTS)
+    if 2 * (halo + seg_len) > tile:
+        seg_len, halo = tile, 0
+    return DeemphPlan(magic, shift, seg_len, halo)

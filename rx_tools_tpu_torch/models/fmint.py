@@ -106,14 +106,21 @@ def seam_value(seam) -> int:
     return ((v & 0xFFFF) ^ 0x8000) - 0x8000
 
 
-def int_chain_block(cfg, state: IntFmState, block_i16):
-    """One block through the bit-exact integer chain: device demod, host
-    seam patch, device audio post.  Returns ``(state, audio int16
-    np.ndarray)``."""
+def demod_block(cfg, state: IntFmState, block_i16):
+    """One block's device demod and host seam patch: ``(state, result)``,
+    the int16-valued samples the audio post takes."""
     block = as_block(block_i16, state.pre_r.device)
     st, result, seam = _step(cfg, state, block)
     if seam is not None:
         result = result.clone()
         result[0] = seam_value(seam.tolist())
+    return st, result
+
+
+def int_chain_block(cfg, state: IntFmState, block_i16):
+    """One block through the bit-exact integer chain: device demod, host
+    seam patch, device audio post.  Returns ``(state, audio int16
+    np.ndarray)``."""
+    st, result = demod_block(cfg, state, block_i16)
     st, audio, n_valid = _post(cfg, st, result)
     return st, audio[: int(n_valid)].cpu().numpy().astype(np.int16)

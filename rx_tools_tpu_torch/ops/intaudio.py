@@ -14,8 +14,9 @@ bit for bit:
 - ``low_pass_simple``'s int16-wrapped group sums (``rtl_fm.c:373-387``);
 - ``deemph_filter``'s rounding-toward-average integer IIR
   (``rtl_fm.c:667-682``) — a sequential nonlinear recurrence with no
-  exact parallel form, so on the card it is the hand-written kernel
-  ``kernels/csrc/int_deemph.cu`` (:func:`deemph_int`); its plain version
+  exact scan, so on the card it is the hand-written kernel
+  ``kernels/csrc/int_deemph.cu`` (:func:`deemph_int`: division by a
+  reciprocal, segments whose seams meet inside a halo); its plain version
   walks the carry on the host;
 - ``dc_block_audio_filter``'s truncating block-mean EMA
   (``rtl_fm.c:684-697``);
@@ -39,6 +40,7 @@ import numpy as np
 import torch
 
 from rx_tools_tpu_torch import kernels
+from rx_tools_tpu_torch.kernels import plan
 from rx_tools_tpu_torch.ops.discriminators import (_ATAN_LUT_COEF,
                                                    _ATAN_LUT_SIZE,
                                                    _atan_lut_host)
@@ -174,26 +176,47 @@ def deemph_int_plain(avg: torch.Tensor, x: torch.Tensor, deemph_a: int):
 def deemph_int(avg: torch.Tensor, x: torch.Tensor, deemph_a: int):
     """The integer de-emphasis: ``(avg, x) -> (avg, y)``, bit-exact.
 
-    Launches ``kernels/csrc/int_deemph.cu`` for a CUDA tensor (one thread
-    walks the carry over the block staged in shared memory; the new
-    average stays on the card) and counts the launch; a CPU tensor runs
-    :func:`deemph_int_plain`."""
+    Launches ``kernels/csrc/int_deemph.cu`` for a CUDA tensor and counts
+    the launch: division by the constants of ``kernels.plan.div_magic``,
+    and a walk in the segments of ``kernels.plan.deemph_plan``, each
+    finding its starting carry where walks from both ends of the block's
+    range meet inside a halo, with an ordered fallback where they do not.
+    No host synchronisation: the new average stays on the card.  A CPU
+    tensor runs :func:`deemph_int_plain`."""
     if x.device.type == "cpu":
         return deemph_int_plain(avg, x, deemph_a)
+    if not 0 < deemph_a < 2 ** 31:
+        raise ValueError("deemph_int: deemph_a must be in 1 .. 2**31 - 1")
+    p = plan.deemph_plan(x.numel(), deemph_a)
+    return _launch_deemph(avg, x, deemph_a, p.seg_len, p.halo)
+
+
+def _launch_deemph(avg, x, deemph_a: int, seg_len: int, halo: int,
+                   fallback: torch.Tensor | None = None):
+    """Launch the kernel with segments of ``seg_len`` samples and halos of
+    ``halo``; ``fallback``, an optional (2,) int32 tensor on the card,
+    receives the segments and samples the ordered fallback walked."""
     if x.device.type != "cuda" or avg.device != x.device:
         raise ValueError("deemph_int: avg and x must be on one CUDA device")
     if x.dtype != _I64 or avg.dtype != _I64 or x.dim() != 1 or avg.dim():
         raise TypeError("deemph_int: expects a 0-d int64 avg and (N,) int64 x")
-    if not 0 < deemph_a < 2 ** 31:
-        raise ValueError("deemph_int: deemph_a must be in 1 .. 2**31 - 1")
+    if fallback is not None and (fallback.device != x.device
+                                 or fallback.dtype != torch.int32
+                                 or fallback.shape != (2,)
+                                 or not fallback.is_contiguous()):
+        raise ValueError("deemph_int: fallback must be a contiguous (2,) "
+                         "int32 tensor on x's device")
+    magic, shift = plan.div_magic(deemph_a)
     x = x.contiguous()
     y = torch.empty_like(x)
     carry = avg.clone()
     dev = x.device
     with torch.cuda.device(dev):
         err = kernels.lib("int_deemph").rx_int_deemph(
-            x.data_ptr(), y.data_ptr(), carry.data_ptr(), x.numel(),
-            int(deemph_a), kernels.stream_handle(dev))
+            x.data_ptr(), y.data_ptr(), carry.data_ptr(),
+            None if fallback is None else fallback.data_ptr(), x.numel(),
+            int(deemph_a), magic, shift, int(seg_len), int(halo),
+            kernels.stream_handle(dev))
     kernels.check(err, "deemph_int")
     deemph_int.launches += 1
     return carry, y

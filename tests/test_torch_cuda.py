@@ -158,7 +158,7 @@ def test_int_deemph_bitwise(cuda, a, n):
     from rx_tools_tpu_torch.ops import intaudio
     rng = np.random.default_rng(n + a)
     x = torch.as_tensor(rng.integers(-32768, 32767, n))
-    for avg0 in (0, -1234, 70000):
+    for avg0 in (0, -1234, 40000, 70000, -(2 ** 31 + 5)):
         avg = torch.tensor(avg0, dtype=torch.int64)
         before = intaudio.deemph_int.launches
         ga, gy = intaudio.deemph_int(avg.to(cuda), x.to(cuda), a)
@@ -175,6 +175,100 @@ def test_int_deemph_bitwise(cuda, a, n):
         ys.append(y1)
     _, y_all = intaudio.deemph_int_plain(torch.tensor(-77), x[:40], a)
     assert torch.equal(torch.cat(ys).cpu(), y_all)
+
+
+def _deemph_case(cuda, avg0, x, a, schedule=None):
+    """One kernel call (the plan's segments, or ``schedule = (seg_len,
+    halo)``) against the plain walk: (launches, fallback)."""
+    from rx_tools_tpu_torch.kernels import plan
+    from rx_tools_tpu_torch.ops import intaudio
+    avg = torch.tensor(avg0, dtype=torch.int64)
+    xt = torch.as_tensor(x, dtype=torch.int64)
+    fb = torch.full((2,), -1, dtype=torch.int32, device=cuda)
+    p = plan.deemph_plan(xt.numel(), a)
+    seg_len, halo = schedule or (p.seg_len, p.halo)
+    before = intaudio.deemph_int.launches
+    ga, gy = intaudio._launch_deemph(avg.to(cuda), xt.to(cuda), a, seg_len,
+                                     halo, fallback=fb)
+    pa, py = intaudio.deemph_int_plain(avg, xt, a)
+    torch.cuda.synchronize()
+    assert int(ga) == int(pa), (avg0, a, x.size)
+    assert torch.equal(gy.cpu(), py), (avg0, a, x.size)
+    return intaudio.deemph_int.launches - before, fb.tolist()
+
+
+@pytest.mark.parametrize("n_label", ["1", "L-1", "L", "L+1", "1368", "9000"])
+@pytest.mark.parametrize("a", [1, 2, 8, 13, 75, 240])
+@pytest.mark.parametrize("kind", ["noise", "tone", "silence", "constant",
+                                  "square", "step"])
+def test_int_deemph_input_classes(cuda, kind, a, n_label):
+    """The kernel bit for bit against its host walk over the input classes,
+    constants and lengths of the CPU schedule tests (one launch a call),
+    and its fallback counts equal to the schedule model's."""
+    from oracles import deemph_schedule as sched
+    from rx_tools_tpu_torch.kernels import plan
+    seg_len = plan.deemph_plan(1368, a).seg_len
+    n = {"L-1": seg_len - 1, "L": seg_len, "L+1": seg_len + 1}.get(
+        n_label) or int(n_label)
+    x = sched.signal(kind, n, seed=n + a)
+    for avg0 in (0, -1234, 40000, 70000, -(2 ** 31 + 5)):
+        launches, fb = _deemph_case(cuda, avg0, x, a)
+        assert launches == 1
+        assert fb == list(sched.walk(avg0, x, a)[2:])
+
+
+@pytest.mark.parametrize("seg_len,halo", [(16, 0), (16, 3), (17, 40),
+                                          (50, 0), (33, 200), (4096, 0)])
+@pytest.mark.parametrize("kind", ["noise", "tone", "step"])
+def test_int_deemph_forced_segments(cuda, kind, seg_len, halo):
+    """Short halos leave walks that meet inside their segment or never:
+    the ordered fallback on the card, across tiles too."""
+    from oracles import deemph_schedule as sched
+    for n in (300, 9000):
+        x = sched.signal(kind, n, seed=seg_len + n)
+        for avg0 in (0, 40000, -(2 ** 31 + 5)):
+            _, fb = _deemph_case(cuda, avg0, x, 13, schedule=(seg_len, halo))
+            assert fb == list(sched.walk(avg0, x, 13, seg_len, halo)[2:])
+
+
+@pytest.mark.parametrize("above", [True, False])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("a", [1, 13, 2 ** 31 - 1])
+def test_int_deemph_at_the_32_bit_limit(cuda, a, offset, above):
+    """``hi - lo + a/2`` at 2**31 - 1 (the 32-bit walk's last range) and
+    2**31 (the 64-bit walk's first), the first step as wide as the range:
+    bit for bit, one launch, and with short segments the fallback counts
+    of the walk the model takes there."""
+    from oracles import deemph_schedule as sched
+    avg0, x = sched.edge_case(a, offset, above)
+    for schedule in (None, (16, 0)):
+        launches, fb = _deemph_case(cuda, avg0, x, a, schedule)
+        assert launches == 1
+        assert fb == list(sched.walk(avg0, x, a, *(schedule or ()))[2:])
+
+
+def test_int_deemph_int64_extremes(cuda):
+    """The 64-bit walk is exact for any int64 pair, like the host walk."""
+    x = np.array([2 ** 62, -(2 ** 62), 2 ** 63 - 1, -(2 ** 63), 5, -7, 0],
+                 np.int64)
+    for avg0 in (-(2 ** 63), 2 ** 63 - 1, 0):
+        for a in (1, 13, 2 ** 31 - 1):
+            _deemph_case(cuda, avg0, x, a)
+
+
+def test_int_deemph_validates(cuda):
+    from rx_tools_tpu_torch.ops import intaudio
+    avg = torch.zeros((), dtype=torch.int64, device=cuda)
+    x = torch.zeros(1368, dtype=torch.int64, device=cuda)
+    with pytest.raises(RuntimeError):           # 1368 segments of one
+        intaudio._launch_deemph(avg, x, 13, 1, 0)
+    with pytest.raises(ValueError):
+        intaudio._launch_deemph(avg, x, 13, 11, 231, fallback=torch.zeros(
+            2, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError):
+        intaudio.deemph_int(avg, x, 0)
+    with pytest.raises(TypeError):
+        intaudio.deemph_int(avg, x.to(torch.int32), 13)
 
 
 @pytest.fixture
