@@ -20,3 +20,5 @@ __version__ = "0.1.0"
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+from rx_tools_tpu_torch.utils import units  # noqa: F401,E402

@@ -13,6 +13,7 @@ de-emphasis (``intaudio``).  The channelizers' batched tail ops
 on the card), the ``--int-fft`` tier int32 arithmetic.
 """
 
+from rx_tools_tpu_torch.ops.cic import CIC_9_TABLES, cic_9_taps
 from rx_tools_tpu_torch.ops.fir import (
     BoxcarState, FifthOrderState, DroopState, boxcar_decimate,
     fifth_order_decimate, fifth_order_cascade, droop_fir, low_pass_simple,
@@ -30,15 +31,15 @@ from rx_tools_tpu_torch.ops.discriminators import (
 )
 from rx_tools_tpu_torch.ops.filters import (
     deemph_filter, deemph_alpha, deemph_blocks, dc_block_audio,
-    dc_block_raw, rms_level_planar,
+    dc_block_raw, rms_level, rms_level_planar, mad_level,
 )
 from rx_tools_tpu_torch.ops.pallas_frontend import (
     capture_frontend, capture_frontend_pallas, capture_frontend_jnp,
     capture_frontend_planar,
 )
 from rx_tools_tpu_torch.ops.resample import (
-    resample_rational, resample_rational_batch, resample_sinc, ResampleState,
-    SincResampleState,
+    resample_divisible, resample_rational, resample_rational_batch,
+    resample_sinc, ResampleState, SincResampleState,
 )
 from rx_tools_tpu_torch.ops.windows import window, window_coefs_int, WINDOWS
 from rx_tools_tpu_torch.ops.spectrum import (

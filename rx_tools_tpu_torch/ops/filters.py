@@ -15,8 +15,11 @@ Counterpart of :mod:`rx_tools_tpu.ops.filters`.
 - :func:`dc_block_audio` — block-mean DC removal with exponential
   smoothing across blocks (``rtl_fm.c:684-697``); :func:`dc_block_raw`
   is its twin on raw I/Q before demodulation (``rtl_fm.c:699-721``).
-- :func:`rms_level_planar` — the squelch power estimator with
-  DC-in-squares correction (``rms``, ``rtl_fm.c:739-757``).
+- :func:`rms_level` / :func:`rms_level_planar` — the squelch power
+  estimator with DC-in-squares correction (``rms``, ``rtl_fm.c:739-757``),
+  over an interleaved block or planar streams; :func:`mad_level` — the mean
+  absolute deviation the reference ships beside it (``mad``,
+  ``rtl_fm.c:722-737``).
 """
 
 from __future__ import annotations
@@ -225,6 +228,24 @@ def dc_block_raw(dc_iq, x, block_const: int = 9):
     avg = torch.mean(x, dim=0)
     avg = div_const(avg + dc_iq * float(block_const), float(block_const + 1))
     return avg, x - avg[None, :]
+
+
+def mad_level(x):
+    """Mean absolute deviation (``mad``, ``rtl_fm.c:722-737``) of ``x``,
+    any shape, pooled.  The reference ships it but never calls it; the
+    C's truncating integer mean is a float mean here, as in
+    :mod:`rx_tools_tpu.ops.filters`."""
+    v = x.reshape(-1)
+    n = float(v.shape[0])
+    avg = div_const(torch.sum(v), n)
+    return div_const(torch.sum(torch.abs(v - avg)), n)
+
+
+def rms_level(x):
+    """RMS over all components of an interleaved ``(N, 2)`` block pooled,
+    with DC correction (``rms(lowpassed, len, 1)``, rtl_fm.c:739-757)."""
+    v = x.reshape(-1)
+    return _rms_from_sums(torch.sum(v), torch.sum(v * v), float(v.shape[0]))
 
 
 def rms_level_planar(zi, zq):

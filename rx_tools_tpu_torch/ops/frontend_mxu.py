@@ -23,6 +23,16 @@ launches; on a CPU tensor each runs the plain version):
   same planar result;
 - ``ops.pallas_frontend.capture_frontend_pallas`` (K3) — interleaved
   ``(K, 2)``, on the same kernel.
+
+The reference's plain matrix formulations of the same function are here
+too, as library products on the input's device (cuBLAS, cuBLASLt's int8
+``torch._int_mm``, cuDNN on the card): ``capture_frontend_mm`` (scale,
+then one float32 product), ``capture_frontend_mm_i8`` (two exact int8
+products), ``capture_frontend_mm_i16`` and ``capture_frontend_mm_i16_2``
+(exact integer products), ``capture_frontend_mm_bf16`` (an inexact
+probe), ``capture_frontend_t2`` (the thin product) and
+``capture_frontend_conv`` (a strided convolution).  None is on the
+chain's path, and none counts launches.
 """
 
 from __future__ import annotations
@@ -31,15 +41,32 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from rx_tools_tpu_torch import kernels
 from rx_tools_tpu_torch.kernels import plan
-from rx_tools_tpu_torch.ops.numeric import device_const
+from rx_tools_tpu_torch.ops.numeric import device_const, fp32_products
 from rx_tools_tpu_torch.ops.pallas_frontend import _SCALE, _fs4_decim_masks
 
 #: the kernel's ring holds two stages of at least 16 rows of D int16
 #: pairs in shared memory (at most 227 KB; ``kernels/plan.py``)
 _MAX_D = 1800
+
+#: ``_SCALE`` rounded to bfloat16, the reference's ``bfloat16(_SCALE)``
+_BF16_SCALE = float(torch.tensor(float(_SCALE)).to(torch.bfloat16))
+
+#: the largest D whose partial sums (at most 2D int16 terms times +-1)
+#: stay within 2**24, so a float32 product of the raw samples is exact
+_MAX_F32_EXACT_D = 2 ** 24 // (2 * 32768)
+
+
+def _highest(precision) -> None:
+    """Accept the reference's ``precision=`` keyword: its default
+    ``Precision.HIGHEST`` (or ``None``) is what the float32 forms compute;
+    any lower precision would round the 15-bit inputs, so it is refused."""
+    if precision is not None and str(precision).upper() != "HIGHEST":
+        raise ValueError(f"precision {precision!r}: only HIGHEST (float32 "
+                         f"products, TF32 off) is computed")
 
 
 def _group_phase_select(zi, zq, d: int):
@@ -91,9 +118,9 @@ def _pick_p(k: int, d: int, rotate: bool) -> int:
     return 1
 
 
-def _int_masks(d: int, rotate: bool) -> np.ndarray:
-    """(2, 2D) int32: the Re and Im masks of :func:`_fs4_decim_masks`."""
-    return np.stack(_fs4_decim_masks(d, rotate)).astype(np.int32)
+def _masks(d: int, rotate: bool, dtype: str) -> np.ndarray:
+    """(2, 2D): the Re and Im masks of :func:`_fs4_decim_masks`."""
+    return np.stack(_fs4_decim_masks(d, rotate)).astype(dtype)
 
 
 def _rows(block_i16: torch.Tensor, d: int) -> int:
@@ -114,7 +141,7 @@ def capture_head_plain(block_i16: torch.Tensor, downsample: int,
     d = int(downsample)
     k = _rows(block_i16, d)
     g = block_i16.reshape(k, 2 * d).to(torch.int32)
-    masks = device_const(_int_masks, d, bool(rotate),
+    masks = device_const(_masks, d, bool(rotate), "int32",
                          device=block_i16.device)
     zi = (g * masks[0]).sum(dim=1)
     zq = (g * masks[1]).sum(dim=1)
@@ -128,25 +155,217 @@ def capture_head_plain(block_i16: torch.Tensor, downsample: int,
     return zi, zq
 
 
+# --- the reference's matrix forms: library products, none on the path ---
+
+def _phase_block(block_i16: torch.Tensor, d: int, rotate: bool,
+                 p: int | None) -> int:
+    """The phase-block size P of a matrix form: ``p``, or the largest of
+    the reference's that divides K; 1 means none does."""
+    k = _rows(block_i16, d)
+    return _pick_p(k, d, rotate) if p is None else p
+
+
+def _blocks(x: torch.Tensor, d: int, p: int) -> torch.Tensor:
+    """The stream as ``(K/P, P*2D)`` rows of P output samples each."""
+    return x.reshape(-1, p * 2 * d)
+
+
+def _planar(out: torch.Tensor, p: int):
+    """``(K/P, 2P)`` product columns -> the planar ``(zi, zq)`` streams."""
+    return out[:, :p].reshape(-1), out[:, p:].reshape(-1)
+
+
+def _matrix(block_i16: torch.Tensor, d: int, p: int, rotate: bool):
+    return device_const(_fs4_decim_matrix, d, p, bool(rotate),
+                        device=block_i16.device)
+
+
+def capture_frontend_mm(block_i16: torch.Tensor, downsample: int,
+                        rotate: bool = True, p: int | None = None,
+                        precision=None):
+    """``(2N,) int16 -> ((K,), (K,)) float32`` planar, the reference's one
+    float32 matrix product: scale first, then ``(K/P, P*2D) @ (P*2D, 2P)``
+    against :func:`_fs4_decim_matrix` with TF32 off (``Precision.HIGHEST``).
+    Equal to :func:`capture_head_plain` up to float32 sum reassociation;
+    ``p == 1`` (no phase block divides K) computes through it."""
+    _highest(precision)
+    d = int(downsample)
+    p = _phase_block(block_i16, d, rotate, p)
+    if p == 1:
+        return capture_head_plain(block_i16, d, rotate)
+    fp32_products()
+    g = _blocks(block_i16, d, p).to(torch.float32) * float(_SCALE)
+    return _planar(g @ _matrix(block_i16, d, p, rotate), p)
+
+
+def _int8_matrix(d: int, p: int, rotate: bool, rows: int,
+                 cols: int) -> np.ndarray:
+    """:func:`_fs4_decim_matrix` as int8, zero-padded to ``(rows, cols)``."""
+    m = _fs4_decim_matrix(d, p, rotate)
+    out = np.zeros((rows, cols), np.int8)
+    out[:m.shape[0], :m.shape[1]] = m
+    return out
+
+
+def _offset_sums(d: int, p: int, rotate: bool) -> np.ndarray:
+    """(2P,) int32: 128 times each column sum of the mask matrix, what the
+    ``lo - 128`` plane takes off each output."""
+    return 128 * _fs4_decim_matrix(d, p, rotate).sum(axis=0).astype(np.int32)
+
+
+def _int_mm_shape(m: int, k: int, n: int):
+    """``(m, k, n)`` padded with zeros to what ``torch._int_mm`` accepts on
+    the card: more than 16 rows, ``k`` and ``n`` multiples of 8."""
+    return max(m, 17), -(-k // 8) * 8, -(-n // 8) * 8
+
+
+def _int8_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact ``a @ b`` of int8 operands into int32: ``torch._int_mm`` on a
+    CUDA tensor, an int32 product on the CPU.  The caller pads ``a`` and
+    ``b`` to :func:`_int_mm_shape`."""
+    if a.device.type == "cuda":
+        return torch._int_mm(a, b)
+    return a.to(torch.int32) @ b.to(torch.int32)
+
+
+def capture_frontend_mm_i8(block_i16: torch.Tensor, downsample: int,
+                           rotate: bool = True, p: int | None = None):
+    """``(2N,) int16 -> ((K,), (K,)) float32`` planar, via two int8
+    products: each sample splits into ``hi = x >> 8`` and ``lo = (x & 255)
+    - 128``, so ``x = 256 hi + lo + 128``; both planes multiply the int8
+    mask matrix with int32 accumulation, and the column sums times 128
+    restore the offset.  Integer-exact, one scale at the end: equals
+    :func:`capture_head_plain` bit for bit.  On the card the products are
+    ``torch._int_mm``; a shape outside its rules (at most 16 rows, or a
+    contraction or column count not a multiple of 8) is padded with zeros,
+    which add nothing, and the result sliced back.  ``p == 1`` computes
+    through :func:`capture_head_plain`."""
+    d = int(downsample)
+    p = _phase_block(block_i16, d, rotate, p)
+    if p == 1:
+        return capture_head_plain(block_i16, d, rotate)
+    x = _blocks(block_i16, d, p)
+    rows, width = x.shape
+    mp, kp, cols = _int_mm_shape(rows, width, 2 * p)
+    dev = block_i16.device
+    m8 = device_const(_int8_matrix, d, p, bool(rotate), kp, cols, device=dev)
+    csum = device_const(_offset_sums, d, p, bool(rotate), device=dev)
+    hi = (x >> 8).to(torch.int8)
+    lo = (torch.bitwise_and(x, 255) - 128).to(torch.int8)
+    if (mp, kp) != (rows, width):
+        pad = (0, kp - width, 0, mp - rows)
+        hi, lo = F.pad(hi, pad), F.pad(lo, pad)
+    zhi = _int8_product(hi, m8)[:rows, :2 * p]
+    zlo = _int8_product(lo, m8)[:rows, :2 * p]
+    out = (zhi * 256 + zlo + csum).to(torch.float32) * float(_SCALE)
+    return _planar(out, p)
+
+
+def _exact_product(block_i16: torch.Tensor, d: int, p: int, rotate: bool,
+                   cols: slice = slice(None)) -> torch.Tensor:
+    """``(K/P, P*2D) @ (P*2D, 2P)[:, cols]`` of the raw samples against
+    :func:`_fs4_decim_matrix`, accumulated exactly: in float32 (TF32 off)
+    while D <= 256, where every partial sum is an integer within 2**24,
+    and in float64 above that."""
+    if d <= _MAX_F32_EXACT_D:
+        fp32_products()
+        dt = torch.float32
+    else:
+        dt = torch.float64
+    g = _blocks(block_i16, d, p).to(dt)
+    return g @ _matrix(block_i16, d, p, rotate)[:, cols].to(dt)
+
+
 def capture_frontend_mm_i16(block_i16: torch.Tensor, downsample: int,
                             rotate: bool = True, p: int | None = None):
     """``(2N,) int16 -> ((K,), (K,)) float32`` planar, the plain integer
-    head in the reference's matrix form: ``(K/P, P*2D) @ (P*2D, 2P)``
-    against :func:`_fs4_decim_matrix`, accumulated exactly (float64 holds
-    every partial sum of int16 terms), then one float32 scale.  Equals
+    head in the reference's matrix form: the raw samples times
+    :func:`_fs4_decim_matrix` in one exact product
+    (:func:`_exact_product`), then one float32 scale.  Equals
     :func:`capture_head_plain` bit for bit; ``p == 1`` (no usable phase
     block) computes through it directly."""
     d = int(downsample)
-    k = _rows(block_i16, d)
-    if p is None:
-        p = _pick_p(k, d, rotate)
+    p = _phase_block(block_i16, d, rotate, p)
     if p == 1:
         return capture_head_plain(block_i16, d, rotate)
-    g = block_i16.reshape(k // p, p * 2 * d).to(torch.float64)
-    m = device_const(_fs4_decim_matrix, d, p, bool(rotate),
-                     device=block_i16.device).to(torch.float64)
-    out = (g @ m).to(torch.float32) * float(_SCALE)
-    return out[:, :p].reshape(-1), out[:, p:].reshape(-1)
+    out = _exact_product(block_i16, d, p, rotate)
+    return _planar(out.to(torch.float32) * float(_SCALE), p)
+
+
+def capture_frontend_mm_i16_2(block_i16: torch.Tensor, downsample: int,
+                              rotate: bool = True, p: int | None = None):
+    """Two-product twin of :func:`capture_frontend_mm_i16`: the Re and Im
+    halves of the mask matrix in separate exact products, so each
+    ``(K/P, P)`` result is already its planar stream.  Equals
+    :func:`capture_frontend_mm_i16` bit for bit."""
+    d = int(downsample)
+    p = _phase_block(block_i16, d, rotate, p)
+    if p == 1:
+        return capture_head_plain(block_i16, d, rotate)
+    scale = float(_SCALE)
+    return tuple(_exact_product(block_i16, d, p, rotate, half).to(
+        torch.float32).reshape(-1) * scale
+        for half in (slice(None, p), slice(p, None)))
+
+
+def capture_frontend_mm_bf16(block_i16: torch.Tensor, downsample: int,
+                             rotate: bool = True, p: int | None = None):
+    """``(2N,) int16 -> ((K,), (K,)) float32`` planar, a traffic probe and
+    inexact by design: the scaled input is rounded to bfloat16 (8 mantissa
+    bits against the 15 the head needs) and multiplies the bfloat16 mask
+    matrix with float32 accumulation.  Both bfloat16 operands are upcast
+    to float32 before one float32 product (TF32 off): every bfloat16
+    product is exact in float32, as the reference's
+    ``preferred_element_type=float32`` gives.  Within a relative error of
+    0.05 of :func:`capture_head_plain` on the reference test's input
+    (tests/test_frontend_mxu.py:187-198); ``p == 1`` computes through it."""
+    d = int(downsample)
+    p = _phase_block(block_i16, d, rotate, p)
+    if p == 1:
+        return capture_head_plain(block_i16, d, rotate)
+    fp32_products()
+    y = block_i16.to(torch.bfloat16) * _BF16_SCALE
+    g = _blocks(y, d, p).to(torch.float32)
+    return _planar(g @ _matrix(block_i16, d, p, rotate), p)
+
+
+def capture_frontend_t2(block_i16: torch.Tensor, downsample: int,
+                        rotate: bool = True, precision=None):
+    """``(2N,) int16 -> ((K,), (K,)) float32`` planar, the thin product
+    ``(2, 2D) @ (K, 2D)^T`` in float32 (TF32 off): its two rows are the
+    planar streams, the group phase applied by select.  Equal to
+    :func:`capture_head_plain` up to float32 sum reassociation."""
+    _highest(precision)
+    d = int(downsample)
+    k = _rows(block_i16, d)
+    fp32_products()
+    g = (block_i16.to(torch.float32) * float(_SCALE)).reshape(k, 2 * d)
+    m2 = device_const(_masks, d, bool(rotate), "float32",
+                      device=block_i16.device)
+    zi, zq = m2 @ g.T
+    if rotate and d % 4:
+        zi, zq = _group_phase_select(zi, zq, d)
+    return zi, zq
+
+
+def capture_frontend_conv(block_i16: torch.Tensor, downsample: int,
+                          rotate: bool = True, precision=None):
+    """``(2N,) int16 -> ((K,), (K,)) float32`` planar, one strided
+    convolution (window = stride = 2D, two output channels: the Re and Im
+    masks) over the flat interleaved stream, TF32 off; the group phase by
+    select.  Equal to :func:`capture_head_plain` up to float32 sum
+    reassociation."""
+    _highest(precision)
+    d = int(downsample)
+    _rows(block_i16, d)
+    fp32_products()
+    y = (block_i16.to(torch.float32) * float(_SCALE))[None, None, :]
+    w = device_const(_masks, d, bool(rotate), "float32",
+                     device=block_i16.device)[:, None, :]
+    zi, zq = F.conv1d(y, w, stride=2 * d)[0]
+    if rotate and d % 4:
+        zi, zq = _group_phase_select(zi, zq, d)
+    return zi, zq
 
 
 def _launch_head(block_i16: torch.Tensor, downsample: int, rotate: bool,

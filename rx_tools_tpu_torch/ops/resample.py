@@ -20,7 +20,8 @@ Two float formulations, as in the reference:
   twin :func:`resample_rows_blocks` runs M per-block calls as one and
   gives the same values as the loop.
 
-:func:`resample_sinc` is the polyphase windowed-sinc resampler of
+:func:`resample_divisible` is the exact-ratio path (window = divisor =
+fast / slow).  :func:`resample_sinc` is the polyphase windowed-sinc resampler of
 ``-E hq`` (beyond the reference).
 """
 
@@ -129,6 +130,18 @@ def rows_path_eligible(n: int, fast: int, slow: int,
 
 def _f32_divisor(fast: int, slow: int) -> float:
     return float(np.float32(1.0 / (fast // slow)))
+
+
+def resample_divisible(x: torch.Tensor, fast: int, slow: int):
+    """Exact-ratio path: windows of ``fast // slow`` samples, each sum
+    times the float32 ``1 / (fast // slow)``; a trailing partial window is
+    dropped.  ``fast`` must be a multiple of ``slow``."""
+    if fast % slow:
+        raise ValueError(f"resample_divisible: {fast} is not a multiple of "
+                         f"{slow}")
+    k = fast // slow
+    n = (x.shape[0] // k) * k
+    return x[:n].reshape(-1, k).sum(dim=1) * _f32_divisor(fast, slow)
 
 
 def _resample_rows(state: ResampleState, x: torch.Tensor, fast: int,

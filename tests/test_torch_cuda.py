@@ -149,6 +149,83 @@ def test_results_do_not_depend_on_grid(cuda, grids):
 
 
 
+# the reference's plain matrix forms of the head (library products on the
+# card) at BASELINE config #1's chunk: 12 blocks of 258048 samples, D = 14
+CFG1_D, CFG1_K = 14, 221184
+
+
+@pytest.mark.parametrize("name", ["capture_frontend_mm_i8",
+                                  "capture_frontend_mm_i16",
+                                  "capture_frontend_mm_i16_2"])
+def test_exact_head_forms_on_card(cuda, name):
+    d = CFG1_D
+    x = _x(cuda, 2 * d * CFG1_K, seed=41)
+    zi, zq = frontend_mxu.capture_head_plain(x, d)
+    gi, gq = getattr(frontend_mxu, name)(x, d)
+    torch.cuda.synchronize()
+    assert gi.device.type == "cuda"
+    assert torch.equal(gi, zi) and torch.equal(gq, zq)
+
+
+@pytest.mark.parametrize("name", ["capture_frontend_mm",
+                                  "capture_frontend_t2",
+                                  "capture_frontend_conv"])
+def test_float_head_forms_on_card(cuda, tf32_on, name):
+    """With TF32 allowed in the process each form still multiplies in full
+    float32 (tests/test_frontend_mxu.py:29's bound)."""
+    d = CFG1_D
+    x = _x(cuda, 2 * d * CFG1_K, seed=42)
+    zi, zq = frontend_mxu.capture_head_plain(x, d)
+    gi, gq = getattr(frontend_mxu, name)(x, d)
+    for got, want in ((gi, zi), (gq, zq)):
+        assert got.device.type == "cuda" and got.shape == want.shape
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=2e-5, atol=5e-3)
+
+
+def test_bf16_head_probe_on_card(cuda):
+    """The bf16 class (tests/test_frontend_mxu.py:187-198) on that test's
+    input, and at config #1 the card's probe against the CPU's."""
+    rng = np.random.default_rng(31)
+    d = CFG1_D
+    x = torch.from_numpy(
+        rng.integers(-2000, 2000, 2 * d * 32 * 24).astype(np.int16)).to(cuda)
+    for got, plain in zip(frontend_mxu.capture_frontend_mm_bf16(x, d),
+                          frontend_mxu.capture_head_plain(x, d)):
+        assert got.dtype == torch.float32
+        assert float(((got - plain).abs() / (plain.abs() + 1)).max()) < 0.05
+    x = _x(cuda, 2 * d * CFG1_K, seed=43)
+    for got, want in zip(frontend_mxu.capture_frontend_mm_bf16(x, d),
+                         frontend_mxu.capture_frontend_mm_bf16(x.cpu(), d)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=2e-5, atol=5e-3)
+
+
+@pytest.mark.parametrize("d,k,rot", [(5, 2 * 49, False),   # P = 2, k = 20
+                                     (6, 2 * 5, False),    # P = 2, 5 rows
+                                     (14, 32 * 3, True),   # 3 rows
+                                     (14, CFG1_K, True)])  # no padding
+def test_mm_i8_pads_to_int_mm(cuda, monkeypatch, d, k, rot):
+    """Shapes outside ``torch._int_mm``'s rules are padded with zeros: the
+    result stays bitwise and both products still run on ``_int_mm``."""
+    calls = []
+    int_mm = torch._int_mm
+
+    def counting(a, b):
+        calls.append((tuple(a.shape), tuple(b.shape)))
+        return int_mm(a, b)
+
+    monkeypatch.setattr(torch, "_int_mm", counting)
+    x = _x(cuda, 2 * d * k, seed=d + k)
+    zi, zq = frontend_mxu.capture_head_plain(x, d, rot)
+    gi, gq = frontend_mxu.capture_frontend_mm_i8(x, d, rot)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, zi) and torch.equal(gq, zq)
+    assert len(calls) == 2
+    for (m, kk), (kb, n) in calls:
+        assert m > 16 and kk % 8 == 0 and n % 8 == 0 and kk == kb
+
+
 @pytest.mark.parametrize("a", [13, 8, 1])
 @pytest.mark.parametrize("n", [1368, 1, 9000])
 def test_int_deemph_bitwise(cuda, a, n):
