@@ -123,8 +123,17 @@ Phases, in order:
     shard`` (the streaming bytes), ``rx_power`` config #5 in both tiers and
     ``rx_channels -n 64`` (station channels within 2 LSB of ``RX_PFB=cm``);
     each sharded step timed against its unsharded step with CUDA events,
-    and the CLIs' wall times at 2 ranks and 1;
-12. one JSON line listing every kernel entry point, then the result line.
+    and the CLIs' wall times at 2 ranks and 1; ``entry.dryrun_multichip(4)``
+    (the twin of ``__graft_entry__.py``'s dry run: time shards three ways,
+    channel and hop sharding on tiny shapes) on ``[cuda:0] * 4`` with its
+    K1 launches and wall time, its outputs against the same run on the CPU
+    (counts and shapes exact, FM audio at rtol 1e-4 / atol 0.1, the PFB at
+    rtol / atol 2e-4 of each channel's peak, the sweep at rtol 1e-6);
+12. the hardware-soak twin, ``python -m rx_tools_tpu_torch.hw_soak``: exit
+    2 with no radio, exit 0 against a two-connection rtl_tcp server on
+    localhost serving phase 9's config #1 CU8 recording (its check lines
+    printed, its CLIs on the card);
+13. one JSON line listing every kernel entry point, then the result line.
 """
 
 import contextlib
@@ -547,41 +556,55 @@ def rx_power_phase(dev, counted, tmp):
 
 
 class RtlTcpMock:
-    """The server side of the rtl_tcp protocol on localhost: the 12-byte
-    header, ``payload`` as the CU8 stream, EOF, then the 5-byte commands
-    the client sent are kept until it closes."""
+    """The server side of the rtl_tcp protocol on localhost, for
+    ``connections`` clients in turn: to each the 12-byte header,
+    ``payload`` as the CU8 stream, EOF, then the 5-byte commands the
+    client sent are kept until it closes."""
 
-    def __init__(self, payload):
+    def __init__(self, payload, connections=1):
         import socket
         import threading
         self.payload, self.commands = payload, []
+        self.connections = connections
         self._lsock = socket.socket()
         self._lsock.bind(("127.0.0.1", 0))
-        self._lsock.listen(1)
+        self._lsock.listen(connections)
         self.port = self._lsock.getsockname()[1]
         self._thread = threading.Thread(target=self._serve, daemon=True)
         self._thread.start()
 
     def _serve(self):
+        try:
+            for _ in range(self.connections):
+                conn, _ = self._lsock.accept()
+                self._serve_one(conn)
+        finally:
+            self._lsock.close()
+
+    def _serve_one(self, conn):
         import socket
         import struct
-        conn, _ = self._lsock.accept()
         conn.settimeout(30.0)
         buf = b""
         try:
-            conn.sendall(b"RTL0" + struct.pack(">II", 5, 29))
-            conn.sendall(self.payload)
-            conn.shutdown(socket.SHUT_WR)
+            try:
+                conn.sendall(b"RTL0" + struct.pack(">II", 5, 29))
+                conn.sendall(self.payload)
+                conn.shutdown(socket.SHUT_WR)
+            except OSError:
+                pass          # the client left before the payload's end
             while True:
-                chunk = conn.recv(4096)
+                try:
+                    chunk = conn.recv(4096)
+                except OSError:
+                    break     # a client that leaves data unread resets
                 if not chunk:
                     break
                 buf += chunk
         finally:
             conn.close()
-            self._lsock.close()
-        self.commands = [struct.unpack(">BI", buf[i:i + 5])
-                         for i in range(0, len(buf) - 4, 5)]
+        self.commands += [struct.unpack(">BI", buf[i:i + 5])
+                          for i in range(0, len(buf) - 4, 5)]
 
     def join(self):
         self._thread.join(timeout=60)
@@ -590,7 +613,8 @@ class RtlTcpMock:
 
 
 def sources_phase(counted, tmp):
-    """Phase 9: every I/Q source and wire format into the card."""
+    """Phase 9: every I/Q source and wire format into the card.  Returns
+    the bytes of its config #1 CU8 recording (0.25 s at 2.4 Msps)."""
     import ctypes
 
     import numpy as np
@@ -834,6 +858,7 @@ def sources_phase(counted, tmp):
                       "kernel_share_of_traced": by_cat["kernel"] / traced_ms,
                       "trace_mb": traces[0].stat().st_size / 1e6}))
     print(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return cu8
 
 # phase 10's scene: eight FM stations on the 64-channel grid of a 2.4 Msps
 # capture at 98 MHz (channel k at 98 MHz + k * 37.5 kHz), each with a 1 kHz
@@ -1415,8 +1440,122 @@ def parallel_phase(dev, cfg, synth, counted, tmp):
                                         for k in two_cpu[0]},
                       "k1_launches": {k: [r[k]["k1"] for r in two]
                                       for k in two[0]}}))
+
+    # (e) entry.dryrun_multichip(4), the twin of __graft_entry__.py's dry
+    # run, on [cuda:0] * 4; then its outputs against the same run on the
+    # CPU: counts and shapes exact, FM audio and carries at the time
+    # shards' rtol 1e-4 / atol 0.1, the PFB at tests/test_pfb.py:174-176's
+    # bound (scaled by each channel's peak), the sweep's samples exact and
+    # its avg within 1e-6 of each hop row's peak: cuFFT and the CPU's FFT
+    # round apart by ~1e-7 of a row's energy, so a bin far below its row's
+    # peak differs by more than 1e-6 of itself (the elementwise relative
+    # error is printed beside it)
+    from rx_tools_tpu_torch import entry
+    t = time.perf_counter()
+    _, k_dry = counted(lambda: entry.dryrun_multichip(4))
+    dry_wall = time.perf_counter() - t
+    dry, _ = counted(lambda: entry._dryrun_outputs(4, "cuda"))
+    dry_cpu = entry._dryrun_outputs(4, "cpu")
+    dry_err, bad = {}, []
+    for name, outs in dry.items():
+        got = [x.cpu().numpy() for x in outs]
+        want = [x.numpy() for x in dry_cpu[name]]
+        if [g.shape for g in got] != [w.shape for w in want]:
+            fail(f"dryrun {name}: card shapes {[g.shape for g in got]}, "
+                 f"CPU {[w.shape for w in want]}")
+        if name == "sweep":
+            (a, n), (ca, cn) = got, want
+            peak = np.abs(ca).max(axis=1, keepdims=True)
+            err = float((np.abs(a - ca) / peak).max())
+            dry_err["sweep_elementwise_rel"] = float(
+                (np.abs(a - ca) / np.abs(ca)).max())
+            ok = err <= 1e-6 and np.array_equal(n, cn)
+        elif name == "pfb":
+            (a, nv), (ca, cnv) = got, want
+            ok, err = np.array_equal(nv, cnv), 0.0
+            for ch in range(a.shape[0]):
+                k = int(cnv[ch])
+                scale = max(1.0, float(np.abs(ca[ch, :k]).max(initial=0)))
+                ok &= np.allclose(a[ch, :k] / scale, ca[ch, :k] / scale,
+                                  rtol=2e-4, atol=2e-4)
+                err = max(err, float(np.abs(a[ch, :k] - ca[ch, :k]).max(
+                    initial=0)) / scale)
+        else:
+            (a, nv, c), (ca, cnv, cc) = got, want
+            ok = np.array_equal(nv, cnv) and np.allclose(c, cc, rtol=1e-4,
+                                                         atol=0.1)
+            err = 0.0
+            for idx in np.ndindex(*nv.shape):
+                k = int(cnv[idx])
+                ok &= np.allclose(a[idx][:k], ca[idx][:k], rtol=1e-4,
+                                  atol=0.1)
+                err = max(err, float(np.abs(a[idx][:k] - ca[idx][:k]).max(
+                    initial=0)))
+        dry_err[name] = err
+        if not ok:
+            bad.append(name)
+    print(json.dumps({"dryrun_multichip": 4, "mesh": "[cuda:0] * 4",
+                      "shapes": {k: [list(x.shape) for x in v]
+                                 for k, v in dry.items()},
+                      "k1_launches": k_dry["capture_frontend_mm_pallas"],
+                      "wall_s": dry_wall, "err_vs_cpu": dry_err,
+                      "card": card_line()}))
+    if bad or k_dry["capture_frontend_mm_pallas"] <= 0:
+        fail(f"dryrun_multichip(4): {bad} outside their class against the "
+             f"CPU, K1 launches {k_dry}")
     print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
     return sum(d["k1"] for r in two + one for d in r.values())
+
+
+def soak_phase(cu8, tmp):
+    """Phase 12: the hardware-soak twin, ``python -m
+    rx_tools_tpu_torch.hw_soak``, as its user runs it: with no radio it
+    exits 2; against an rtl_tcp server on localhost that serves phase 9's
+    config #1 CU8 recording (repeated to 1.25 s) to each of its two
+    clients, with the band narrowed to the recording's span, its CLIs run
+    on the card and it exits 0."""
+    t_phase = time.perf_counter()
+
+    def soak(*args):
+        """Start the soak; ``finish()`` gives (exit code, its lines)."""
+        p = subprocess.Popen([sys.executable, "-m",
+                              "rx_tools_tpu_torch.hw_soak", *args], cwd=ROOT,
+                             stdout=subprocess.DEVNULL,
+                             stderr=subprocess.PIPE, text=True)
+
+        def finish():
+            try:
+                _, err = p.communicate(timeout=400)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.communicate()
+                fail(f"hw_soak {' '.join(args)} did not finish in 400 s")
+            return p.returncode, [line for line in err.splitlines()
+                                  if line.startswith("[hw_soak]")]
+        return finish
+
+    # the run with no radio and the run against the mock at once: each
+    # spends most of its time starting Python processes
+    no_radio = soak()
+    mock = RtlTcpMock(cu8 * 5, connections=2)
+    t = time.perf_counter()
+    rc, lines = soak("--rtltcp", f"127.0.0.1:{mock.port}", "--fm-freq",
+                     f"{STATION:.0f}", "--band", "99.8M:102M:10k",
+                     "--seconds", "300")()
+    wall = time.perf_counter() - t
+    mock.join()
+    rc2, lines2 = no_radio()
+    if rc2 != 2:
+        fail(f"hw_soak with no radio exited {rc2}, want 2: {lines2}")
+    print(f"hw_soak, no radio: exit {rc2} ({lines2[-1]})")
+    for line in lines:
+        print(f"  {line}")
+    if rc != 0:
+        fail(f"hw_soak against the rtl_tcp mock exited {rc}, want 0")
+    print(json.dumps({"hw_soak": "rtl_tcp mock, phase 9's config #1 CU8 "
+                      "x5, band 99.8M:102M:10k", "exit": rc,
+                      "wall_s": wall, "card": card_line()}))
+    print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
 
 
 WBFM_SYNTH = ("synth=fm,audio=1k,dev=50k,amp=0.8,noise=0.001,seed=3,"
@@ -2021,7 +2160,7 @@ def main():
 
     # ---- phase 9: sources on the card --------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
-        sources_phase(counted, Path(tmp))
+        cfg1_cu8 = sources_phase(counted, Path(tmp))
 
     # ---- phase 10: rx_channels -------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -2032,7 +2171,11 @@ def main():
         path_counts["capture_frontend_mm_pallas"].append(
             parallel_phase(dev, cfg, synth, counted, Path(tmp)))
 
-    # ---- phase 12: the record ----------------------------------------------
+    # ---- phase 12: the hardware-soak twin -----------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        soak_phase(cfg1_cu8, Path(tmp))
+
+    # ---- phase 13: the record ----------------------------------------------
     kern["int_deemph"] = deemph
     lines = []
     for name, k in kern.items():

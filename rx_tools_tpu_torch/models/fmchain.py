@@ -234,7 +234,7 @@ def fm_chain_step(cfg: FmConfig, state: FmState, block,
     block = as_block(block, dev)
     k_out = block.shape[0] // 2 // cfg.downsample
     rotate = not cfg.offset_tuning
-    if fused_eligible(cfg, fused):
+    if fused_eligible(cfg, k_out, fused=fused):
         # one-kernel front: capture + fast-atan discriminator + level
         # partials; the std-atan2 seam at sample 0 (rtl_fm.c:588-590) is
         # computed in the kernel — semantics of the unfused path

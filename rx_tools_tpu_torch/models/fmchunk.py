@@ -62,7 +62,7 @@ def fm_chunk_step(cfg: fmchain.FmConfig, state: fmchain.FmState, blocks,
     d = cfg.downsample
     kpb = n // d
     rotate = not cfg.offset_tuning
-    if fused_eligible(cfg, fused):
+    if fused_eligible(cfg, kpb, fused=fused):
         prev_iq, audio, levels = fused_capture_fm_demod(
             state.prev_iq, blocks.reshape(-1), d, kpb, rotate=rotate)
         return _fm_tail(cfg, state, audio, levels, prev_iq,

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from rx_tools_tpu_torch.device import resolve_device
 from rx_tools_tpu_torch.ops.numeric import device_const, div_const
 
 
@@ -115,11 +116,12 @@ def _iir_scan_flat(avg, b, c: float, block: int = 512):
 _MXU_FORCE = False
 
 
-def deemph_mxu_path(device: torch.device) -> bool:
-    """True when :func:`deemph_filter` on ``device`` takes the triangular
+def deemph_mxu_path(device=None) -> bool:
+    """True when :func:`deemph_filter` on ``device`` (default: the
+    resolved device, ``device.resolve_device``) takes the triangular
     matmul form (CUDA, or forced) — the scan engine's batched tail gates
     on it to stay bit-identical to per-block calls."""
-    return _MXU_FORCE or torch.device(device).type == "cuda"
+    return _MXU_FORCE or resolve_device(device).type == "cuda"
 
 
 def _iir_scan_batch_mxu(avg, b, c: float, lanes: int = 128):

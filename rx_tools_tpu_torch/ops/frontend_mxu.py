@@ -69,6 +69,24 @@ def _highest(precision) -> None:
                          f"products, TF32 off) is computed")
 
 
+def _pallas_options(what: str, interpret: bool = False,
+                    tile_rows: int | None = None,
+                    reference_rows: int | None = None) -> None:
+    """Accept the reference kernels' Pallas keywords where they change
+    nothing, refuse them where they would: the port has no Pallas
+    interpreter (a CPU tensor runs the plain version, a CUDA tensor the
+    kernel), and its tiles are planned from D alone (``kernels/plan.py``),
+    so only the reference's default ``tile_rows`` is accepted."""
+    if interpret:
+        raise ValueError(f"{what}: interpret=True asks for the Pallas "
+                         "interpreter, which the port does not have; a "
+                         "CPU tensor runs the plain version")
+    if tile_rows != reference_rows:
+        raise ValueError(f"{what}: tile_rows={tile_rows!r}: the CUDA kernel "
+                         "plans its tiles from D alone (kernels/plan.py); "
+                         f"only the reference's {reference_rows} is accepted")
+
+
 def _group_phase_select(zi, zq, d: int):
     """Apply the per-output-sample group phase ``i**(D*k)`` elementwise."""
     k = torch.arange(zi.shape[0], dtype=torch.int64, device=zi.device)
@@ -398,12 +416,19 @@ def _launch_head(block_i16: torch.Tensor, downsample: int, rotate: bool,
 
 
 def capture_frontend_mm_pallas(block_i16: torch.Tensor, downsample: int,
-                               rotate: bool = True):
+                               rotate: bool = True, p: int = 32,
+                               tile_rows: int = 128, precision=None,
+                               interpret: bool = False):
     """K1: ``(2N,) int16 -> ((K,), (K,)) float32`` planar capture head.
 
     Launches ``capture_head.cu`` for a CUDA tensor (any K; the TPU's
     ``K % P`` gate does not apply) and counts the launch; a CPU tensor
-    runs :func:`capture_head_plain`."""
+    runs :func:`capture_head_plain`.  The reference's keywords: ``p`` (the
+    TPU product's column block) changes nothing and is ignored;
+    ``precision`` below HIGHEST, ``tile_rows`` other than 128 and
+    ``interpret=True`` raise ``ValueError``."""
+    _highest(precision)
+    _pallas_options("capture_frontend_mm_pallas", interpret, tile_rows, 128)
     if block_i16.device.type == "cpu":
         return capture_head_plain(block_i16, downsample, rotate)
     out = _launch_head(block_i16, downsample, rotate, False,
@@ -416,9 +441,14 @@ capture_frontend_mm_pallas.launches = 0
 
 
 def capture_frontend_mm_pallas2(block_i16: torch.Tensor, downsample: int,
-                                rotate: bool = True):
+                                rotate: bool = True, p: int = 32,
+                                tile_rows: int = 256,
+                                interpret: bool = False):
     """K4: the two-output twin of K1 — separate Re and Im planes, which
-    are K1's planar layout; same kernel, its own launch count."""
+    are K1's planar layout; same kernel, its own launch count.  ``p`` is
+    ignored; ``tile_rows`` other than 256 and ``interpret=True`` raise
+    ``ValueError``, as for K1."""
+    _pallas_options("capture_frontend_mm_pallas2", interpret, tile_rows, 256)
     if block_i16.device.type == "cpu":
         return capture_head_plain(block_i16, downsample, rotate)
     out = _launch_head(block_i16, downsample, rotate, False,

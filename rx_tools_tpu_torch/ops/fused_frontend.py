@@ -29,7 +29,8 @@ from rx_tools_tpu_torch import kernels
 from rx_tools_tpu_torch.kernels import plan
 from rx_tools_tpu_torch.ops.discriminators import polar_discriminant
 from rx_tools_tpu_torch.ops.filters import _rms_from_sums
-from rx_tools_tpu_torch.ops.frontend_mxu import capture_head_plain
+from rx_tools_tpu_torch.ops.frontend_mxu import (_pallas_options,
+                                                 capture_head_plain)
 from rx_tools_tpu_torch.ops.pallas_frontend import _SCALE
 
 _PI4 = float(1 << 12)
@@ -39,15 +40,24 @@ _PI34 = float(3 * (1 << 12))
 _MAX_D = 200
 
 
-def fused_eligible(cfg, fused: bool | None = None) -> bool:
-    """True when the one-kernel front covers ``cfg`` and it is asked for:
-    ``fused`` if given, else ``RX_FUSED=1``; FM with the fast-atan
-    discriminator, squelch off, no raw DC block, boxcar decimation."""
+def fused_eligible(cfg, k_per_block: int, fused: bool | None = None
+                   ) -> bool:
+    """True when the one-kernel front covers ``cfg`` at ``k_per_block``
+    output samples a block and it is asked for: ``fused`` if given, else
+    ``RX_FUSED=1``; FM with the fast-atan discriminator, squelch off, no
+    raw DC block, boxcar decimation, and a block of at least one sample.
+
+    The reference's signature.  Its gate also requires the TPU backend
+    and a block that its Pallas tiles divide (``pick_tile_rows``); the
+    CUDA kernel takes any block, and the switch holds on any device: a
+    CPU tensor runs the kernel's plain version
+    (:func:`fused_capture_fm_plain`)."""
     if fused is None:
         fused = os.environ.get("RX_FUSED", "") == "1"
-    return (bool(fused) and cfg.mode == "fm" and cfg.custom_atan == 1
-            and cfg.squelch_level == 0 and not cfg.dc_block_raw
-            and not cfg.downsample_passes and cfg.fir_quality <= 9)
+    return (bool(fused) and int(k_per_block) > 0 and cfg.mode == "fm"
+            and cfg.custom_atan == 1 and cfg.squelch_level == 0
+            and not cfg.dc_block_raw and not cfg.downsample_passes
+            and cfg.fir_quality <= 9)
 
 
 def _check_geometry(blocks_flat: torch.Tensor, downsample: int,
@@ -85,7 +95,17 @@ def fused_capture_fm(prev_iq: torch.Tensor, blocks_flat: torch.Tensor,
     with std-atan2 seams, each block's RMS level (the block's tile
     partials summed in tile order by the last CTA to finish) and the
     chunk's last decimated sample.  ``grid`` forces the number of CTAs
-    (default: one resident wave; the results do not depend on it)."""
+    (default: one resident wave; the results do not depend on it).
+
+    This contract differs from the reference's ``fused_capture_fm(block,
+    downsample, rotate, tile_rows, interpret)`` by design.  The TPU runs
+    its grid in order and carries each tile's last sample to the next in
+    SMEM (``rx_tools_tpu/ops/fused_frontend.py:104-118``), so it takes one
+    block and leaves the seams and per-tile partials to its caller.  The
+    CUDA kernel's CTAs run in any order: each tile reads a halo of the
+    samples before it instead, so the kernel takes the previous sample
+    (``prev_iq``) and a chunk of M blocks, and finishes the seams and the
+    per-block levels itself."""
     kernels.require_cuda_int16(blocks_flat, "fused_capture_fm")
     d = int(downsample)
     if not 1 <= d <= _MAX_D:
@@ -154,12 +174,15 @@ def fused_capture_fm_plain(prev_iq: torch.Tensor, blocks_flat: torch.Tensor,
 
 def fused_capture_fm_demod(prev_iq: torch.Tensor, blocks_flat: torch.Tensor,
                            downsample: int, k_per_block: int,
-                           rotate: bool = True):
+                           rotate: bool = True, interpret: bool = False):
     """The fused front of the chain engines: ``blocks_flat`` (M*2N,) int16,
     M blocks of ``k_per_block`` output samples.  Returns
     ``(new_prev_iq (2,), d (K,), levels (M,))`` with the semantics of the
     capture head + ``fm_discriminate_planar(..., seam_stride=k_per_block)``
-    + the rms level formula.  K2 on CUDA, the plain version on the CPU."""
+    + the rms level formula.  K2 on CUDA, the plain version on the CPU;
+    ``interpret=True`` (the reference's Pallas interpreter) raises
+    ``ValueError``."""
+    _pallas_options("fused_capture_fm_demod", interpret)
     if blocks_flat.device.type == "cpu":
         return fused_capture_fm_plain(prev_iq, blocks_flat, downsample,
                                       k_per_block, rotate)

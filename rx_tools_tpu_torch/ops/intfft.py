@@ -156,7 +156,8 @@ def remove_dc_int(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([i, q], dim=-1).reshape(*lead, ln)
 
 
-def int_hop_segments(block, win_int, bin_e: int, ds: int):
+def int_hop_segments(block, win_int, bin_e: int, ds: int,
+                     peak_hold: bool = False):
     """Hops' reads -> per-segment ``|X|^2`` (..., segs, bin_len) int32,
     every stage bit-faithful (scanner, rtl_power.c:714-770, boxcar path).
 
@@ -164,7 +165,9 @@ def int_hop_segments(block, win_int, bin_e: int, ds: int):
     a hop.  The caller accumulates the returned powers into int64 (sums
     may not fit int32), or takes their max over segments for peak
     hold.  ``win_int`` is the ×256
-    integer coefficient table (rtl_power.c:1034-1037).
+    integer coefficient table (rtl_power.c:1034-1037).  ``peak_hold`` is
+    the reference's parameter, accepted and not read there either: the
+    segments are the same, and the caller chooses sum or max.
     """
     bin_len = 1 << bin_e
     x = block.to(_I32)

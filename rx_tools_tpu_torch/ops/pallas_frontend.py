@@ -64,12 +64,15 @@ def capture_frontend_jnp(block_i16: torch.Tensor, downsample: int,
 
 
 def capture_frontend_pallas(block_i16: torch.Tensor, downsample: int,
-                            rotate: bool = True):
+                            rotate: bool = True, interpret: bool = False):
     """K3: ``(2N,) int16 -> (N/D, 2) float32`` interleaved capture head.
 
     The interleaved output layout of ``kernels/csrc/capture_head.cu``;
-    counts its CUDA launches.  A CPU tensor runs the plain version."""
+    counts its CUDA launches.  A CPU tensor runs the plain version;
+    ``interpret=True`` (the reference's Pallas interpreter) raises
+    ``ValueError``."""
     from rx_tools_tpu_torch.ops import frontend_mxu
+    frontend_mxu._pallas_options("capture_frontend_pallas", interpret)
     if block_i16.device.type == "cpu":
         return frontend_mxu.capture_head_plain(block_i16, downsample, rotate,
                                                interleaved=True)

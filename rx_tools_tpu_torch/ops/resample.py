@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from rx_tools_tpu_torch.device import resolve_device
 from rx_tools_tpu_torch.ops.filters import _scan_matrix
 from rx_tools_tpu_torch.ops.numeric import device_const
 
@@ -118,12 +119,13 @@ def _reduce(fast: int, slow: int):
 
 
 def rows_path_eligible(n: int, fast: int, slow: int,
-                       device: torch.device) -> bool:
+                       device=None) -> bool:
     """True when :func:`resample_rational` takes the rows path for a block
-    of ``n`` samples on ``device`` (callers that batch per-block calls —
-    the scan engine's tail — gate on this)."""
+    of ``n`` samples on ``device`` (default: the resolved device,
+    ``device.resolve_device``; callers that batch per-block calls — the
+    scan engine's tail — gate on this)."""
     f, s = _reduce(fast, slow)
-    if not (_ROWS_FORCE or torch.device(device).type == "cuda"):
+    if not (_ROWS_FORCE or resolve_device(device).type == "cuda"):
         return False
     return n % 128 == 0 and f // s + 1 <= 16
 

@@ -46,9 +46,9 @@ class ChunkedFmRunner(CheckpointMixin):
                  chunk: int = 8, block_size: int | None = None,
                  on_squelch: Callable[[], bool] | None = None,
                  exit_on_squelch: bool = False,
-                 engine: str | None = None, fused: bool | None = None,
-                 device=None, checkpoint_path: str | None = None,
-                 checkpoint_every: int = 0):
+                 checkpoint_path: str | None = None,
+                 checkpoint_every: int = 0, *, engine: str | None = None,
+                 fused: bool | None = None, device=None):
         self.cfg = cfg
         self.source = source
         self.sink = sink

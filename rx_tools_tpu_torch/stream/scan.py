@@ -40,14 +40,15 @@ def stack_blocks(iq: np.ndarray, block_size: int) -> np.ndarray:
     return iq[: n * 2 * block_size].reshape(n, 2 * block_size)
 
 
-def _batched_front_ok(cfg: fmchain.FmConfig, fused: bool | None) -> bool:
+def _batched_front_ok(cfg: fmchain.FmConfig, k_per_block: int,
+                      fused: bool | None) -> bool:
     """The chunk-wide front needs a stateless capture path: the boxcar head
     (no fifth-order, polyphase-FIR or raw-DC history to carry from block to
     block), squelch off (per-block zeroing feeds the discriminator) and not
     the opt-in fused kernel (which fuses capture+disc per block by
     design)."""
     return (fmchain.boxcar_head(cfg) and cfg.squelch_level == 0
-            and not fused_eligible(cfg, fused))
+            and not fused_eligible(cfg, k_per_block, fused=fused))
 
 
 def scan_fm_blocks(cfg: fmchain.FmConfig, state: fmchain.FmState, blocks,
@@ -57,7 +58,8 @@ def scan_fm_blocks(cfg: fmchain.FmConfig, state: fmchain.FmState, blocks,
     stepping ``fm_chain_step`` per block."""
     fmchain.check_supported(cfg)
     blocks = fmchain.as_block(blocks, state.prev_iq.device)
-    if _batched_front_ok(cfg, fused):
+    kpb = blocks.shape[-1] // 2 // cfg.downsample
+    if _batched_front_ok(cfg, kpb, fused):
         return _scan_batched_front(cfg, state, blocks)
     audio, n_valid, levels = [], [], []
     for i in range(blocks.shape[0]):

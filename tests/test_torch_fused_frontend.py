@@ -87,13 +87,14 @@ def test_eligibility_gates(monkeypatch):
                 downsample=14, custom_atan=1, deemph_a=13, squelch_level=0.0)
     ok = fmchain.FmConfig(**base)
     monkeypatch.delenv("RX_FUSED", raising=False)
-    assert not fused_frontend.fused_eligible(ok)          # opt-in
-    assert fused_frontend.fused_eligible(ok, fused=True)
+    k = 1368
+    assert not fused_frontend.fused_eligible(ok, k)       # opt-in
+    assert fused_frontend.fused_eligible(ok, k, fused=True)
     monkeypatch.setenv("RX_FUSED", "1")
-    assert fused_frontend.fused_eligible(ok)
-    assert not fused_frontend.fused_eligible(ok, fused=False)
+    assert fused_frontend.fused_eligible(ok, k)
+    assert not fused_frontend.fused_eligible(ok, k, fused=False)
     for bad in (dict(custom_atan=0), dict(mode="am"),
                 dict(squelch_level=1.0), dict(dc_block_raw=True),
                 dict(downsample_passes=2)):
         cfg = fmchain.FmConfig(**{**base, **bad})
-        assert not fused_frontend.fused_eligible(cfg, fused=True)
+        assert not fused_frontend.fused_eligible(cfg, k, fused=True)

@@ -63,6 +63,7 @@ def test_import_leaves_jax_out():
             "import rx_tools_tpu_torch.models.pfb, rx_tools_tpu_torch.models.tmaj\n"
             "import rx_tools_tpu_torch.examples.scan_and_demod\n"
             "import rx_tools_tpu_torch.examples.multichannel_fm\n"
+            "import rx_tools_tpu_torch.hw_soak\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'rx_tools_tpu.')) or m == 'rx_tools_tpu']\n"
             "assert not bad, bad\n")

@@ -24,23 +24,32 @@ torch.set_num_threads(2)
 class MockRtlTcpServer:
     """Speaks the server side of the rtl_tcp protocol: sends the 12-byte
     header, streams ``payload``, records every 5-byte command received.
-    ``hold`` keeps the data plane open after the payload (no EOF)."""
+    ``hold`` keeps the data plane open after the payload (no EOF).  It
+    serves ``connections`` clients in turn, each the whole payload."""
 
     def __init__(self, payload: bytes, tuner_type=5, gain_count=29,
-                 hold=False):
+                 hold=False, connections=1):
         self.payload = payload
         self.header = rtltcp.MAGIC + struct.pack(">II", tuner_type, gain_count)
         self.hold = hold
+        self.connections = connections
         self.commands: list[tuple[int, int]] = []
         self._lsock = socket.socket()
         self._lsock.bind(("127.0.0.1", 0))
-        self._lsock.listen(1)
+        self._lsock.listen(connections)
         self.port = self._lsock.getsockname()[1]
         self._thread = threading.Thread(target=self._serve, daemon=True)
         self._thread.start()
 
     def _serve(self):
-        conn, _ = self._lsock.accept()
+        try:
+            for _ in range(self.connections):
+                conn, _ = self._lsock.accept()
+                self._serve_one(conn)
+        finally:
+            self._lsock.close()
+
+    def _serve_one(self, conn):
         conn.settimeout(5.0)
         try:
             try:
@@ -66,7 +75,6 @@ class MockRtlTcpServer:
                     buf = buf[5:]
         finally:
             conn.close()
-            self._lsock.close()
 
     def join(self):
         self._thread.join(timeout=10.0)
