@@ -100,12 +100,17 @@ Phases, in order:
     on the PFB (channel-major); the same file names, per channel the same
     count and at most 1 LSB apart, the tone back on each station's channel;
     ``RX_CHANNELS_CHUNK=1`` against chunked dispatch, identical bytes on the
-    card.  Then, with CUDA events at bench.py's geometries,
-    ``pfb_step_tmaj`` (D = 64, 524288-sample blocks) and
-    ``channelize_step_tmaj`` (64 offsets, D = 16, 131072-sample blocks):
-    ms a step, GB/s of int16 in, channel-realtime equivalents, byte bound,
-    the host's enqueue time a step, CUDA kernels a step and the sum of
-    their device times (``torch.profiler``); and ``rx_channels -n 64``'s
+    card.  Then, at bench.py's geometries, ``pfb_step_tmaj`` (D = 64,
+    524288-sample blocks) and ``channelize_step_tmaj`` (64 offsets, D =
+    16, 131072-sample blocks): each as a CUDA graph against its eager form
+    (``step.__wrapped__``) over 8 chained blocks, bit for bit in audio,
+    count and state, with one capture a key, earlier results untouched by
+    later calls, a re-run from a saved state, and the benchmark's TF32
+    control served by a graph of its own; then for each form, with CUDA
+    events, ms a step, GB/s of int16 in, channel-realtime equivalents,
+    byte bound, the host's enqueue time a step, CUDA kernels a step, the
+    host's launch calls a step and the kernels' summed device times
+    (``torch.profiler``); and ``rx_channels -n 64``'s
     wall time on 3.28 s of the scene (the recording repeated), chunked and
     per-block;
 11. ``parallel/`` on one card: ``time_sharded_fm`` at BASELINE config #1
@@ -143,7 +148,8 @@ Phases, in order:
     same counts, at most 1 LSB of int16 PCM past the channelizers'
     float32 allowance, levels within 1e-4, the state within 1e-2 + 1e-4
     |x| plus the resampler's prefix-sum slack, the checksum within 1e-5
-    of its terms' magnitudes) and chunk 0 against the package's CPU path
+    of its terms' magnitudes, or exact where the cell is: the integer
+    tier's) and chunk 0 against the package's CPU path
     at the same class; one warm pass each, timed on the host clock to
     its checksum's ``.item()``;
 14. one JSON line listing every kernel entry point, then the result line.
@@ -366,13 +372,21 @@ def cuda_kernels_per_call(fn, args):
     return cuda_kernel_profile(fn, args)[0]
 
 
-def cuda_kernel_profile(fn, args):
+#: the runtime calls by which the host puts work on the card
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                 "cudaMemsetAsync")
+
+
+def cuda_kernel_profile(fn, args, launches=False):
     """``(kernels, kernel_ms)`` of one call from a ``torch.profiler`` trace:
     the CUDA kernels it launches (copies and fills not counted) and the sum
     of their device times; ``(None, None)`` when the trace has no device
-    events."""
+    events.  ``launches``: a third value, the host's launch calls
+    (:data:`HOST_LAUNCHES`: kernels, graphs, copies, fills)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    none = (None,) * (3 if launches else 2)
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -380,13 +394,124 @@ def cuda_kernel_profile(fn, args):
             torch.cuda.synchronize()
     except RuntimeError as e:
         print(f"torch.profiler could not trace the card: {e}")
-        return None, None
-    dev = [e for e in prof.events()
+        return none
+    events = prof.events()
+    dev = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
     if not dev:
-        return None, None
-    return len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        return none
+    out = (len(kernels),
+           sum(e.time_range.elapsed_us() for e in kernels) / 1e3)
+    if launches:
+        out += (sum(e.name in HOST_LAUNCHES for e in events
+                    if e.device_type == torch.autograd.DeviceType.CPU),)
+    return out
+
+
+def step_graph_checks(name, cfg, init, step, blocks, dev):
+    """A graphed time-major step (``models/stepgraph.py``) against its
+    eager form, ``step.__wrapped__``, over ``blocks`` chained from a fresh
+    state: audio, count and every state tensor bit for bit; one capture
+    for the key; the results of earlier calls unchanged by later ones; a
+    re-run from a saved state gives the same bytes; under the benchmark's
+    TF32 control a graph of its own, equal to the eager step in TF32 and
+    unequal to the float32 result.  Fails on a miss."""
+    import torch
+    from bench_torch.workloads import tf32_products
+    from torch.utils._pytree import tree_leaves
+
+    def chain(fn, state, blks, keep=None):
+        outs = []
+        for b in blks:
+            state, audio, nv = fn(cfg, state, b)
+            outs.append((audio, nv, state))
+            if keep is not None:
+                keep.append([t.clone() for t in tree_leaves(outs[-1])])
+        return outs
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(a), tree_leaves(b), strict=True))
+
+    step.graphs.clear()
+    before = step.captures
+    eager = chain(step.__wrapped__, init(cfg, dev), blocks)
+    kept = []
+    got = chain(step, init(cfg, dev), blocks, keep=kept)
+    if not same(got, eager):
+        fail(f"{name}: the graphed step differs from its eager form over "
+             f"{len(blocks)} chained blocks")
+    if step.captures != before + 1:
+        fail(f"{name}: {step.captures - before} captures for one key")
+    if not same(got, kept):
+        fail(f"{name}: a later call changed an earlier call's results")
+    if not same(chain(step, got[2][2], blocks[3:]), eager[3:]):
+        fail(f"{name}: a re-run from a saved state differs")
+    with tf32_products():
+        tf_eager = chain(step.__wrapped__, init(cfg, dev), blocks[:4])
+        tf_got = chain(step, init(cfg, dev), blocks[:4])
+    if not same(tf_got, tf_eager) or step.captures != before + 2:
+        fail(f"{name}: under the TF32 control the graphed step differs "
+             f"from the eager one ({step.captures - before} captures)")
+    if same(tf_got, eager[:4]):
+        fail(f"{name}: the TF32 control gives the float32 result")
+    if not same(chain(step, init(cfg, dev), blocks), eager):
+        fail(f"{name}: the float32 graph differs after the TF32 control")
+    print(f"{name}: graphed == eager bit for bit over {len(blocks)} chained "
+          "blocks (audio, count, state), re-run from block 3's state too; "
+          f"{step.captures - before} captures (float32, TF32 control); the "
+          "TF32 control differs from float32")
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """The time-major steps eager inside the block: each module's binding
+    of ``pfb_step_tmaj`` and ``channelize_step_tmaj`` is its
+    ``__wrapped__`` (the scan loops and ``rx_channels`` look them up
+    there at call time)."""
+    from rx_tools_tpu_torch.models import channelizer, pfb
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (pfb, "pfb_step_tmaj"), (channelizer, "channelize_step_tmaj"))]
+    for m, n, f in saved:
+        setattr(m, n, f.__wrapped__)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+#: what the cProfile of a graphed rx_channels run reports: label ->
+#: (file suffix, or "~" for a builtin; function name, or part of a
+#: builtin's).  Leaves only: on the card the profile under-counted the
+#: calls that enclose a capture (main, the scan loop, the step wrapper)
+CLI_PROFILE = {
+    "read_stream": ("iq/sources.py", "read_stream"),
+    "as_block": ("models/fmchain.py", "as_block"),
+    "capture (StepGraph.__init__)": ("models/stepgraph.py", "__init__"),
+    "replay (StepGraph.__call__)": ("models/stepgraph.py", "__call__"),
+    "to_int16": ("apps/rx_channels.py", "to_int16"),
+    "drain": ("apps/rx_channels.py", "drain"),
+    "Tensor.cpu": ("~", "method 'cpu'"),
+    "emit": ("apps/rx_channels.py", "emit"),
+    "file write": ("~", "method 'write'"),
+}
+
+
+def profile_lines(prof, table):
+    """``{label: {"cum_s", "calls"}}`` of ``table``'s functions in a
+    cProfile ``prof``."""
+    import pstats
+    stats = pstats.Stats(prof).stats
+    out = {}
+    for label, (where, name) in table.items():
+        hits = [v for (f, _, fn), v in stats.items()
+                if (f == "~" and where == "~" and name in fn)
+                or (f != "~" and f.endswith(where) and fn == name)]
+        out[label] = {"cum_s": sum(v[3] for v in hits),
+                      "calls": sum(v[1] for v in hits)}
+    return out
 
 
 def rx_power_phase(dev, counted, tmp):
@@ -885,6 +1010,9 @@ CH_SCENE = ("synth=fm,det=1,seed=11,audio=1k,dev=10k,amp=0.08,noise=0.001,"
 
 def channels_phase(counted, tmp, timing=True):
     """Phase 10: rx_channels on the card against the CPU, then timings."""
+    import cProfile
+    import shutil
+
     import numpy as np
     import torch
     from rx_tools_tpu_torch.apps import rx_channels, rx_sdr
@@ -975,7 +1103,9 @@ def channels_phase(counted, tmp, timing=True):
         return
 
     # (b) timings at bench.py's geometries (bench.py:280-288, 328-340),
-    # CUDA events over 5 distinct input blocks, state threaded
+    # CUDA events over 8 distinct input blocks, state threaded; each step
+    # as a CUDA graph (models/stepgraph.py), checked against its eager
+    # form, and eager
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     rng = np.random.default_rng(5)
@@ -993,51 +1123,115 @@ def channels_phase(counted, tmp, timing=True):
              channelizer.channelize_step_tmaj)):
         blocks = [(torch.randint(-16000, 16000, (2 * nb,), generator=gen,
                                  device=dev, dtype=torch.int32)
-                   .to(torch.int16),) for _ in range(5)]
-        holder = [init(cfg, dev)]
+                   .to(torch.int16),) for _ in range(8)]
+        step_graph_checks(name, cfg, init, step, [b[0] for b in blocks], dev)
+        # the first call with a key (warm-up, capture, replay), then a
+        # replay, each synchronised
+        step.graphs.clear()
+        synced = []
+        for st in (init(cfg, dev), init(cfg, dev)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(cfg, st, blocks[0][0])
+            torch.cuda.synchronize()
+            synced.append((time.perf_counter() - t) * 1e3)
+        for form, form_step in (("graphed", step),
+                                ("eager", step.__wrapped__)):
+            holder = [init(cfg, dev)]
 
-        def fn(blk, cfg=cfg, step=step, holder=holder):
-            holder[0], audio, nv = step(cfg, holder[0], blk)
-            return audio, nv
+            def fn(blk, cfg=cfg, step=form_step, holder=holder):
+                holder[0], audio, nv = step(cfg, holder[0], blk)
+                return audio, nv
 
-        ms = time_ms(fn, blocks, rounds=5, iters=20)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(5):          # under the launch queue's depth
-            fn(*blocks[0])
-        host_ms = (time.perf_counter() - t) * 1e3 / 5  # enqueue, no sync
-        torch.cuda.synchronize()
-        kernels, kernel_ms = cuda_kernel_profile(fn, blocks[0])
-        audio, _ = fn(*blocks[0])
-        out_bytes = audio.numel() * 4 + 4
-        bound_ms, bound_by = bound(4 * nb + out_bytes, 0)
-        gbs = 4 * nb / (ms * 1e-3) / 1e9
-        print(json.dumps({
-            "rx_channels step": name, "block_samples": nb, "channels": 64,
-            "ms": ms, "gb_per_s_int16_in": gbs,
-            "channel_rt_equiv": gbs * 1e9 / 4.0 / CAPTURE_RATE * 64,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "host_enqueue_ms": host_ms, "cuda_kernels_per_step": kernels,
-            "kernel_ms_per_step": kernel_ms}))
-        del blocks, holder
+            ms = time_ms(fn, blocks, rounds=5, iters=20)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(5):          # under the launch queue's depth
+                fn(*blocks[0])
+            host_ms = (time.perf_counter() - t) * 1e3 / 5  # enqueue only
+            torch.cuda.synchronize()
+            kernels, kernel_ms, launches = cuda_kernel_profile(
+                fn, blocks[0], launches=True)
+            audio, _ = fn(*blocks[0])
+            out_bytes = audio.numel() * 4 + 4
+            bound_ms, bound_by = bound(4 * nb + out_bytes, 0)
+            gbs = 4 * nb / (ms * 1e-3) / 1e9
+            print(json.dumps({
+                "rx_channels step": name, "form": form,
+                "block_samples": nb, "channels": 64, "ms": ms,
+                "gb_per_s_int16_in": gbs,
+                "channel_rt_equiv": gbs * 1e9 / 4.0 / CAPTURE_RATE * 64,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "host_enqueue_ms": host_ms, "cuda_kernels_per_step": kernels,
+                "host_launches_per_step": launches,
+                "kernel_ms_per_step": kernel_ms,
+                **({"first_call_ms": synced[0], "synced_replay_ms": synced[1]}
+                   if form == "graphed" else {}),
+                "card": card_line()}))
+            del holder
+        del blocks
 
-    # rx_channels -n 64 on 3.28 s of signal: the recording ten times over
-    cap = tmp / "scene_3s.cs16"
-    reps = 10
-    cap.write_bytes(scene.read_bytes() * reps)
-    seconds = reps * 6 * block / CAPTURE_RATE
-    src = ["-d", f"file={cap},format=CS16,rate=2.4M"]
+    # rx_channels -n 64 on the scene 10 and 50 times over (3.28 s and
+    # 16.38 s of signal), chunked and per-block, the steps graphed and
+    # eager (eager_steps) in turns; a graphed run starts with no graph, as
+    # a new process does.  The two lengths split a wall into a fixed cost
+    # and a cost a block; a graphed run of the long recording under
+    # cProfile says where the host's time goes
+    srcs, secs = {}, {}
+    for reps in (10, 50):
+        cap = tmp / f"scene_{reps}x.cs16"
+        cap.write_bytes(scene.read_bytes() * reps)
+        srcs[reps] = ["-d", f"file={cap},format=CS16,rate=2.4M"]
+        secs[reps] = reps * 6 * block / CAPTURE_RATE
+
+    def cli(reps, form, chunk, prof=None):
+        pfb.pfb_step_tmaj.graphs.clear()
+        out = tmp / f"wall-{form}-{reps}-{chunk}"
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(env_var("RX_PLATFORM", None))
+            stack.enter_context(env_var("RX_CHANNELS_CHUNK", chunk))
+            if form == "eager":
+                stack.enter_context(eager_steps())
+            if prof is not None:
+                prof.enable()
+                stack.callback(prof.disable)
+            t = time.perf_counter()
+            rc, _ = counted(lambda: rx_channels.main(
+                pfb64 + srcs[reps] + [str(out)]))
+            wall = time.perf_counter() - t
+        if rc != 0:
+            fail(f"rx_channels -n 64 ({form}, {reps}x) exited {rc}")
+        shutil.rmtree(out)
+        return wall
+
     walls = {}
-    for chunk in ("8", "1", "1", "8"):
-        t = time.perf_counter()
-        counted(lambda: run(pfb64 + src, f"wall{chunk}",
-                            env=[("RX_CHANNELS_CHUNK", chunk)]))
-        walls.setdefault(f"RX_CHANNELS_CHUNK={chunk}", []).append(
-            time.perf_counter() - t)
-    print(json.dumps({"rx_channels -n 64 CS16 file": f"{seconds:.2f} s of "
-                      "signal, -M fm -A fast -c us -r 32k", "wall_s": walls,
-                      "realtime_multiple": {k: [seconds / w for w in v]
-                                            for k, v in walls.items()}}))
+    for chunk in ("8", "1"):
+        for form in ("graphed", "eager", "eager", "graphed"):
+            for reps in (10, 50):
+                walls.setdefault((chunk, form, reps), []).append(
+                    cli(reps, form, chunk))
+    blocks_of = {r: r * 6 for r in (10, 50)}
+    for chunk in ("8", "1"):
+        for form in ("graphed", "eager"):
+            w = {r: sum(walls[chunk, form, r]) / 2 for r in (10, 50)}
+            s_block = (w[50] - w[10]) / (blocks_of[50] - blocks_of[10])
+            print(json.dumps({
+                "rx_channels -n 64 CS16 file": "-M fm -A fast -c us -r 32k",
+                "form": form, "RX_CHANNELS_CHUNK": int(chunk),
+                "wall_s": {f"{secs[r]:.2f} s": walls[chunk, form, r]
+                           for r in (10, 50)},
+                "realtime_multiple": {f"{secs[r]:.2f} s": [
+                    secs[r] / x for x in walls[chunk, form, r]]
+                    for r in (10, 50)},
+                "ms_a_block": s_block * 1e3,
+                "fixed_s": w[10] - blocks_of[10] * s_block,
+                "card": card_line()}))
+    prof = cProfile.Profile()
+    wall = cli(50, "graphed", "8", prof)
+    print(json.dumps({
+        "rx_channels -n 64 under cProfile": f"{secs[50]:.2f} s of signal, "
+        "graphed, RX_CHANNELS_CHUNK=8", "wall_s": wall,
+        "functions": profile_lines(prof, CLI_PROFILE)}))
     print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -1592,8 +1786,8 @@ def bench_phase(dev, counted, card):
         sink = []
         value = wl.run_passes(w, 1, sink=sink).item()
         checks = {f"vs_cpu_{k}": v for k, v in wl.check_cpu(w, ref).items()}
-        checks.update(wl.compare(w, sink, ref),
-                      checksum_rel=wl.checksum_reading(value, ref))
+        checks.update(wl.compare(w, sink, ref))
+        checks[w.checksum_key] = wl.checksum_reading(value, ref, w.exact)
         bad = wl.misses({k.removeprefix("vs_cpu_"): v
                          for k, v in checks.items()})
         if bad:

@@ -34,6 +34,7 @@ from rx_tools_tpu_torch import ops
 from rx_tools_tpu_torch.device import resolve_device
 from rx_tools_tpu_torch.models import tmaj
 from rx_tools_tpu_torch.models.fmchain import as_block, rescale_cs16
+from rx_tools_tpu_torch.models.stepgraph import graphed
 from rx_tools_tpu_torch.ops.discriminators import _lut_products
 from rx_tools_tpu_torch.ops.numeric import device_const, fp32_products
 from rx_tools_tpu_torch.ops.resample import (ResampleState, resample_rational,
@@ -314,12 +315,14 @@ def _tmaj_tail(cfg, davg, resamp: ResampleState, dd):
     return davg, resamp, dd, nv
 
 
+@graphed
 def channelize_step_tmaj(cfg: ChannelizerConfig, state: ChannelizerStateTM,
                          block):
     """Time-major mixer step: ``block`` (2N,) int16 ->
     ``(state, audio (cap, C), n_valid ())``, the arbitrary-offset twin of
     ``pfb.pfb_step_tmaj`` (same output contract).  Gate on
-    :func:`tmaj_supported`."""
+    :func:`tmaj_supported`.  On the card a call replays a CUDA graph of
+    the step (:mod:`.stepgraph`)."""
     fp32_products()
     dev = state.nco_num.device
     block = as_block(block, dev)

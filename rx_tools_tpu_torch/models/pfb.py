@@ -43,6 +43,7 @@ from rx_tools_tpu_torch.models import channelizer as _chan
 from rx_tools_tpu_torch.models.channelizer import (_resamp0, _tmaj_demod,
                                                    _tmaj_tail, _zeros)
 from rx_tools_tpu_torch.models.fmchain import as_block
+from rx_tools_tpu_torch.models.stepgraph import graphed
 from rx_tools_tpu_torch.models.tmaj import (  # noqa: F401  (re-exported)
     _iir_tmaj, _resample_tmaj, _resample_tmaj_periodic)
 from rx_tools_tpu_torch.ops.numeric import device_const, fp32_products
@@ -238,6 +239,7 @@ def filterbank_tmaj(cfg: PfbConfig, tailx, block):
     return xp[-(2 * (t + 1) * d):], ch2
 
 
+@graphed
 def pfb_step_tmaj(cfg: PfbConfig, state: PfbStateTM, block):
     """Time-major PFB step: one wideband block -> D channels demodulated,
     ``(state, audio (cap, D), n_valid ())`` (``audio.T`` is the
@@ -245,7 +247,8 @@ def pfb_step_tmaj(cfg: PfbConfig, state: PfbStateTM, block):
 
     Raw output is refused: the channel-major engine (:func:`pfb_step`)
     serves it, interleaved per channel (the reference package returns the
-    packed [Re | Im] matrix here, ADVICE.md:4)."""
+    packed [Re | Im] matrix here, ADVICE.md:4).  On the card a call
+    replays a CUDA graph of the step (:mod:`.stepgraph`)."""
     d = cfg.n_channels
     if cfg.mode == "raw":
         raise ValueError("pfb_step_tmaj does not serve mode='raw'; use the "

@@ -128,8 +128,9 @@ def _resample_tmaj(state: ResampleState, x, fast: int, slow: int):
     total = csum[m - 1, :] + state.acc
     last_pos = torch.clamp(
         (total_emits * fast - phase0 + slow - 1) // slow - 1, 0, m - 1)
-    consumed_end = torch.where(total_emits > 0, csum[last_pos] + state.acc,
-                               zero)
+    # a 1-element index: a 0-d CUDA index would be read on the host
+    last_row = csum.index_select(0, last_pos.reshape(1))[0]
+    consumed_end = torch.where(total_emits > 0, last_row + state.acc, zero)
     return (ResampleState((total - consumed_end).to(torch.float32),
                           _fill((phase0 + m * slow) % fast, d)),
             y, total_emits.to(torch.int32))

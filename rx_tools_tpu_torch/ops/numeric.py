@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import functools
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -32,8 +33,29 @@ def _cached(make_table, args, device: str) -> torch.Tensor:
                            device=device)
 
 
+#: the lists of :func:`holding_consts` blocks open now
+_HOLDERS: list[list] = []
+
+
 def device_const(make_table, *args, device: torch.device) -> torch.Tensor:
     """``make_table(*args)`` (a numpy table) as a tensor on ``device``,
     made and copied once per (function, args, device): a host-to-device
     copy on every call would wait for the device each time."""
-    return _cached(make_table, args, str(device))
+    table = _cached(make_table, args, str(device))
+    for held in _HOLDERS:
+        held.append(table)
+    return table
+
+
+@contextmanager
+def holding_consts():
+    """Yields a list that collects every table :func:`device_const`
+    returns inside the block.  A CUDA graph reads its tables by address,
+    and the cache above may evict (and free) one while the graph lives:
+    the graph's owner keeps this list as long as the graph."""
+    held: list = []
+    _HOLDERS.append(held)
+    try:
+        yield held
+    finally:
+        _HOLDERS.pop()

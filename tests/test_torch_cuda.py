@@ -692,3 +692,136 @@ def test_channel_sharded_pfb_on_card(cuda, tf32_on, shards):
                       (st_s.deemph_avg, st_u.deemph_avg),
                       (st_s.resamp.acc, st_u.resamp.acc)):
         _scaled_close(got, want, 2e-4)
+
+
+# ---- the time-major steps as CUDA graphs (models/stepgraph.py) ------------
+
+def _leaves(tree):
+    from torch.utils._pytree import tree_leaves
+    return tree_leaves(tree)
+
+
+def _chain(step, cfg, state, blocks, keep=None):
+    """``step`` over ``blocks`` from ``state``: ``[(audio, n_valid, state)]``
+    a block; ``keep`` collects a clone of each call's results as it ends."""
+    outs = []
+    for b in blocks:
+        state, audio, nv = step(cfg, state, b)
+        outs.append((audio, nv, state))
+        if keep is not None:
+            keep.append([t.clone() for t in _leaves(outs[-1])])
+    return outs
+
+
+def _bitwise(a, b):
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def _bench_step(kind, dev):
+    """A benchmark cell's configuration and 8 of its chunks on ``dev``:
+    ``(cfg, init, step, blocks)``."""
+    from bench_torch import workloads as wl
+    from rx_tools_tpu_torch.models import channelizer, pfb
+    engine, config, init, step = {
+        "pfb": ("pfb_tmaj", "rx_channels_pfb64", pfb.init_state_tmaj,
+                pfb.pfb_step_tmaj),
+        "mixer": ("mixer_tmaj", "rx_channels_mixer64",
+                  channelizer.init_state_tmaj,
+                  channelizer.channelize_step_tmaj)}[kind]
+    w = wl.build(engine, config, 0, dev, pool_chunks=8)
+    return w.cfg, init, step, list(w.pool)
+
+
+@pytest.mark.parametrize("kind", ["pfb", "mixer"])
+def test_graphed_step_bitwise_at_bench_geometry(cuda, kind):
+    """At the benchmark's geometries (D = 64, 524288-sample blocks; 64
+    offsets at D = 16, 131072-sample blocks) the graphed step equals its
+    eager form bit for bit over 8 chained blocks (audio, count, every state
+    tensor), captures once, at the first call, leaves earlier results
+    untouched, and a re-run from a saved state gives the same bytes
+    again."""
+    cfg, init, step, blocks = _bench_step(kind, cuda)
+    step.graphs.clear()
+    before = step.captures
+    eager = _chain(step.__wrapped__, cfg, init(cfg, cuda), blocks)
+    kept = []
+    got = _chain(step, cfg, init(cfg, cuda), blocks[:1], keep=kept)
+    assert step.captures == before + 1          # the first call captures
+    got += _chain(step, cfg, got[0][2], blocks[1:], keep=kept)
+    assert step.captures == before + 1
+    assert got[0][0].device.type == "cuda"
+    assert _bitwise(got, eager)
+    assert _bitwise(got, kept)           # no later call wrote a result
+    again = _chain(step, cfg, got[3][2], blocks[4:])
+    assert _bitwise(again, eager[4:])
+    assert _bitwise(_chain(step, cfg, init(cfg, cuda), blocks), eager)
+    assert step.captures == before + 1
+
+
+@pytest.mark.parametrize("kind", ["pfb", "mixer"])
+def test_graphed_step_under_the_tf32_control(cuda, kind):
+    """Under the benchmark's TF32 control the graphed step runs a TF32
+    graph of its own: equal to the eager step in TF32, unequal to the
+    float32 result; the float32 graph still serves afterwards."""
+    from bench_torch.workloads import tf32_products
+    cfg, init, step, blocks = _bench_step(kind, cuda)
+    blocks = blocks[:4]
+    step.graphs.clear()
+    before = step.captures
+    fp32 = _chain(step, cfg, init(cfg, cuda), blocks)
+    with tf32_products():
+        tf_eager = _chain(step.__wrapped__, cfg, init(cfg, cuda), blocks)
+        tf_got = _chain(step, cfg, init(cfg, cuda), blocks)
+    assert step.captures == before + 2
+    assert _bitwise(tf_got, tf_eager)
+    assert not _bitwise(tf_got, fp32)
+    assert _bitwise(_chain(step, cfg, init(cfg, cuda), blocks), fp32)
+    assert _bitwise(fp32, _chain(step.__wrapped__, cfg, init(cfg, cuda),
+                                 blocks))
+
+
+@pytest.mark.parametrize("resample", ["none", "periodic", "prefix_sum"])
+@pytest.mark.parametrize("deemph", [0, 7])
+@pytest.mark.parametrize("mode", ["fm_std", "fm_fast", "fm_lut", "fm_ale",
+                                  "am", "usb", "lsb"])
+@pytest.mark.parametrize("kind", ["pfb", "mixer"])
+def test_every_time_major_configuration_captures(cuda, kind, mode, deemph,
+                                                 resample):
+    """Every configuration rx_channels routes to a time-major engine
+    captures (no host sync, no quiet fallback) and replays its eager bits:
+    each discriminator, AM/USB/LSB, with and without de-emphasis, with no
+    resampler, the periodic-mask one or the prefix-sum one."""
+    from rx_tools_tpu_torch import ops
+    from rx_tools_tpu_torch.models import channelizer, pfb
+    from rx_tools_tpu_torch.ops.resample import periodic_frame
+    fs = 2_400_000
+    # channel rate 150 kHz (D = 16) -> 32 kHz is periodic; 240 kHz (D =
+    # 10) -> 44.1 kHz (800/147) takes the prefix-sum form
+    d, rate_out2 = {"none": (16, -1), "periodic": (16, 32_000),
+                    "prefix_sum": (10, 44_100)}[resample]
+    if rate_out2 > 0:
+        assert periodic_frame(fs // d, rate_out2) == (resample == "periodic")
+    demod, _, atan = mode.partition("_")
+    common = dict(capture_rate=fs, mode=demod, deemph_a=deemph,
+                  rate_out2=rate_out2,
+                  custom_atan=ops.disc_mode(atan) if atan else 0)
+    if kind == "pfb":
+        cfg = pfb.PfbConfig(n_channels=d, **common)
+        init, step = pfb.init_state_tmaj, pfb.pfb_step_tmaj
+    else:
+        cfg = channelizer.ChannelizerConfig(
+            offsets=(-500_000.0, 37_000.0, 300_000.0), downsample=d,
+            **common)
+        init, step = channelizer.init_state_tmaj, \
+            channelizer.channelize_step_tmaj
+    n = 2 * 128 * d
+    blocks = list(torch.as_tensor(_fm_scene(fs, 4 * n, (37_000, 300_000)))
+                  .to(cuda).reshape(4, 2 * n))
+    step.graphs.clear()
+    before = step.captures
+    eager = _chain(step.__wrapped__, cfg, init(cfg, cuda), blocks)
+    got = _chain(step, cfg, init(cfg, cuda), blocks)
+    assert step.captures == before + 1
+    assert _bitwise(got, eager)
